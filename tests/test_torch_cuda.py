@@ -1,0 +1,111 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA card: it is marked ``cuda`` and skips without
+one (the CPU tier-1 run).  The module imports no JAX, so it runs on the
+machine with the card: ``python -m pytest tests/test_torch_cuda.py -q``.
+chip_smoke.py repeats these checks at the full-width shapes.
+"""
+
+import importlib
+
+import pytest
+import torch
+
+from trainingjob_operator_tpu_torch import ops
+from trainingjob_operator_tpu_torch.models import decode, llama
+from trainingjob_operator_tpu_torch.ops import fused
+from trainingjob_operator_tpu_torch.workloads import serve
+
+flash = importlib.import_module(
+    "trainingjob_operator_tpu_torch.ops.flash_attention")
+
+pytestmark = pytest.mark.cuda
+
+#: (rtol, atol): bf16 outputs may be one bf16 rounding apart; f32 differs
+#: only in summation order.
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1, 64), (13, 64), (16, 4096)])
+def test_rmsnorm_kernel_matches_plain(dev, dtype, rows, d):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(rows, d, generator=g, device=dev).to(dtype)
+    scale = torch.randn(d, generator=g, device=dev)
+    ops.reset_launch_counts()
+    got = ops.rmsnorm(x, scale, 1e-5)
+    assert ops.launch_counts()["rmsnorm_fwd"] == 1
+    want = fused.rmsnorm_reference(x, scale, 1e-5)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("causal,H,Hkv,T,D,window,dtype", [
+    (True, 4, 4, 64, 16, 0, torch.float32),
+    (False, 4, 2, 48, 16, 0, torch.float32),
+    (True, 4, 2, 48, 32, 8, torch.float32),
+    (True, 4, 2, 130, 64, 0, torch.bfloat16),
+    (True, 8, 8, 200, 128, 16, torch.bfloat16),
+    (False, 4, 1, 70, 128, 0, torch.bfloat16),
+])
+def test_flash_kernel_matches_plain(dev, causal, H, Hkv, T, D, window,
+                                    dtype):
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(2, T, H, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, T, Hkv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, T, Hkv, D, generator=g, device=dev).to(dtype)
+    ops.reset_launch_counts()
+    out, lse = flash.flash_attention_with_lse(q, k, v, causal=causal,
+                                              window=window)
+    assert ops.launch_counts()["flash_attention_fwd"] == 1
+    want, want_lse = flash.flash_reference_with_lse(q, k, v, causal=causal,
+                                                    window=window)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+
+
+def test_flash_kernel_takes_strided_inputs(dev):
+    # q, k, v as [B, H, T, D] storage viewed as [B, T, H, D]: the kernel
+    # reads them by stride, no copy.
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(1, 4, 40, 16, generator=g, device=dev)
+               .transpose(1, 2) for _ in range(3))
+    out, _ = flash.flash_attention_with_lse(q, k, v, causal=True)
+    want, _ = flash.flash_reference_with_lse(q, k, v, causal=True)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+
+
+def test_kernels_refuse_grad(dev):
+    x = torch.randn(2, 64, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        ops.rmsnorm(x, torch.ones(64, device=dev))
+
+
+def test_tiny_serve_equals_generate_through_the_kernels(dev):
+    base = llama.LlamaConfig.tiny()
+    cfg = llama.LlamaConfig(**{**base.__dict__, "dtype": "float32"})
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    svc = serve.DecodeService(params, cfg, slots=2, prefill_chunk=4,
+                              device=dev)
+    prompt = [7, 3, 11, 2, 9, 4]
+    ops.reset_launch_counts()
+    req = svc.submit(prompt, 10)
+    while not req.finished:
+        svc.step()
+    want = decode.generate(params, torch.tensor([prompt], device=dev), cfg,
+                           steps=10)
+    assert req.tokens == want[0].tolist()
+    counts = ops.launch_counts()
+    assert counts["rmsnorm_fwd"] > 0 and counts["flash_attention_fwd"] == 2

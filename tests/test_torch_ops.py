@@ -1,0 +1,230 @@
+"""PyTorch port ops against the JAX package: RMSNorm and the flash-attention
+forward.
+
+The same numpy inputs go through the JAX function -- its Pallas kernel in
+interpret mode, and its XLA reference -- and through the port's plain
+version, which is what a CPU tensor dispatches to.  The CUDA kernels run
+only on the card: tests/test_torch_cuda.py and chip_smoke.py hold them
+against the plain versions there.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import apply_jax_platform_override
+
+apply_jax_platform_override()
+
+import jax.numpy as jnp  # noqa: E402
+
+from trainingjob_operator_tpu.ops import fused as jfused  # noqa: E402
+from trainingjob_operator_tpu_torch import ops  # noqa: E402
+from trainingjob_operator_tpu_torch.ops import fused as tfused  # noqa: E402
+
+# ``ops.flash_attention`` is the function (both packages re-export it over
+# the module name), so the modules come from importlib.
+jfa = importlib.import_module("trainingjob_operator_tpu.ops.flash_attention")
+tfa = importlib.import_module(
+    "trainingjob_operator_tpu_torch.ops.flash_attention")
+
+#: (rtol, atol) per dtype.  fp32: both sides compute the same f32 math in
+#: another reduction order.  bf16: outputs are rounded to bf16 (8 bits of
+#: mantissa), so one rounding step apart is ~4e-3 relative.
+TOL = {"float32": (2e-4, 2e-5), "bfloat16": (2e-2, 2e-2)}
+LSE_ATOL = 1e-4
+
+# The tier-1 run spreads the suite over several worker processes;
+# tiny shapes gain nothing from more intra-op threads.
+torch.set_num_threads(2)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch CPU tensor of ``dtype``."""
+    return (jnp.asarray(a, getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+class TestRmsnorm:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("jax_side", ["pallas_interpret", "reference"])
+    def test_matches_jax(self, monkeypatch, dtype, jax_side):
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((3, 5, 64)).astype(np.float32) * 3
+        scale = rng.standard_normal((64,)).astype(np.float32)
+        xj, xt = _pair(x, dtype)
+        eps = 1e-5
+        if jax_side == "pallas_interpret":
+            monkeypatch.setenv("TRAININGJOB_PALLAS", "interpret")
+            want = jfused.rmsnorm(xj, jnp.asarray(scale), eps)
+        else:
+            want = jfused._reference(xj, jnp.asarray(scale), eps=eps)
+        got = tfused.rmsnorm(xt, torch.from_numpy(scale), eps)
+        assert got.dtype == xt.dtype
+        rtol, atol = TOL[dtype]
+        np.testing.assert_allclose(_np(got), _np(want), rtol=rtol,
+                                   atol=atol)
+
+    def test_cpu_tensor_takes_plain_path(self):
+        ops.reset_launch_counts()
+        x = torch.randn(4, 64, generator=torch.Generator().manual_seed(0))
+        scale = torch.ones(64)
+        got = ops.rmsnorm(x, scale, 1e-5)
+        assert torch.equal(got, tfused.rmsnorm_reference(x, scale, 1e-5))
+        assert ops.launch_counts()["rmsnorm_fwd"] == 0
+
+    @pytest.mark.parametrize("case", ["odd_dim", "f16", "scale_bf16",
+                                      "strided", "grad"])
+    def test_kernel_refuses_what_it_does_not_take(self, case):
+        x = torch.zeros(4, 64)
+        scale = torch.ones(64)
+        err = ValueError
+        if case == "odd_dim":
+            x, scale = torch.zeros(4, 12), torch.ones(12)
+        elif case == "f16":
+            x, err = x.half(), TypeError
+        elif case == "scale_bf16":
+            scale = scale.bfloat16()
+        elif case == "strided":
+            x = torch.zeros(64, 4).t()
+        else:
+            x.requires_grad_(True)
+            err = NotImplementedError
+        with pytest.raises(err):
+            tfused.check_kernel_args(x, scale)
+
+
+FLASH_CASES = [
+    # (causal, H, Hkv, T, window, dtype)
+    (True, 4, 4, 64, 0, "float32"),
+    (False, 4, 4, 64, 0, "float32"),
+    (True, 4, 2, 64, 0, "float32"),
+    (True, 4, 2, 48, 0, "float32"),
+    (False, 4, 2, 48, 0, "float32"),
+    (True, 4, 2, 48, 8, "float32"),
+    (True, 4, 4, 64, 16, "float32"),
+    (True, 4, 2, 48, 0, "bfloat16"),
+    (True, 4, 2, 48, 16, "bfloat16"),
+]
+
+
+def _qkv(B, T, H, Hkv, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, T, H, D)).astype(np.float32),
+            rng.standard_normal((B, T, Hkv, D)).astype(np.float32),
+            rng.standard_normal((B, T, Hkv, D)).astype(np.float32))
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize("causal,H,Hkv,T,window,dtype", FLASH_CASES)
+    @pytest.mark.parametrize("jax_side", ["pallas_interpret", "reference"])
+    def test_out_and_lse_match_jax(self, causal, H, Hkv, T, window, dtype,
+                                   jax_side):
+        D = 16
+        q, k, v = _qkv(2, T, H, Hkv, D)
+        (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (q, k, v))
+        scale = D ** -0.5
+        # The JAX kernels take [B, H, T, D].
+        qj, kj, vj = (a.transpose(0, 2, 1, 3) for a in (qj, kj, vj))
+        if jax_side == "pallas_interpret":
+            # Blocks of 32 do not divide T = 48: the padded-tail masking
+            # runs on the JAX side, the ragged-tile guards on the port's.
+            out_j, lse_j = jfa._flash_forward(
+                qj, kj, vj, scale=scale, causal=causal, block_q=32,
+                block_k=32, interpret=True, window=window)
+        else:
+            out_j = jfa._reference(qj, kj, vj, scale=scale, causal=causal,
+                                   window=window)
+            lse_j = jfa._reference_lse(qj, kj, scale=scale, causal=causal,
+                                       window=window)
+        out_t, lse_t = tfa.flash_attention_with_lse(
+            qt, kt, vt, causal=causal, window=window)
+        assert out_t.dtype == qt.dtype and out_t.shape == qt.shape
+        assert lse_t.dtype == torch.float32 and lse_t.shape == (2, H, T)
+        rtol, atol = TOL[dtype]
+        np.testing.assert_allclose(_np(out_t),
+                                   _np(out_j).transpose(0, 2, 1, 3),
+                                   rtol=rtol, atol=atol)
+        np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
+                                   rtol=0, atol=LSE_ATOL)
+
+    def test_flash_attention_is_out_of_with_lse(self):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 20, 4, 2, 16))
+        out, _ = tfa.flash_attention_with_lse(q, k, v, causal=True)
+        assert torch.equal(tfa.flash_attention(q, k, v, causal=True), out)
+
+    def test_cpu_tensor_takes_plain_path(self):
+        ops.reset_launch_counts()
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 20, 4, 2, 16))
+        ops.flash_attention(q, k, v, causal=True)
+        assert ops.launch_counts()["flash_attention_fwd"] == 0
+
+    @pytest.mark.parametrize("case", ["window_non_causal", "gqa_mismatch",
+                                      "head_dim", "dtype_mix", "grad"])
+    def test_refusals(self, case):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 20, 4, 2, 16))
+        if case == "window_non_causal":
+            with pytest.raises(ValueError):
+                tfa.flash_attention(q, k, v, causal=False, window=4)
+        elif case == "gqa_mismatch":
+            q3, k3, v3 = (torch.from_numpy(a) for a in _qkv(1, 20, 4, 3, 16))
+            with pytest.raises(ValueError):
+                tfa.flash_attention(q3, k3, v3)
+        elif case == "head_dim":
+            q, k, v = (torch.from_numpy(a) for a in _qkv(1, 20, 4, 2, 24))
+            with pytest.raises(ValueError):
+                tfa.check_kernel_args(q, k, v)
+        elif case == "dtype_mix":
+            with pytest.raises(TypeError):
+                tfa.check_kernel_args(q, k.bfloat16(), v)
+        else:
+            q.requires_grad_(True)
+            with pytest.raises(NotImplementedError):
+                tfa.check_kernel_args(q, k, v)
+
+
+class TestBuild:
+    def test_ctypes_signatures_match_the_c_entry_points(self):
+        # The argtypes in _build.SIGNATURES must list exactly the
+        # parameters of each extern "C" entry point, or ctypes would pass
+        # misplaced or truncated arguments.
+        import re
+
+        from trainingjob_operator_tpu_torch.ops import _build
+
+        found = {}
+        for src in sorted(_build.SRC_DIR.glob("*.cu")):
+            text = src.read_text()
+            for m in re.finditer(r'extern "C" int (tj_\w+)\(([^)]*)\)',
+                                 text):
+                found[m.group(1)] = len(m.group(2).split(","))
+        assert found == {name: len(args) for name, args in
+                         _build.SIGNATURES.items()}
+
+    def test_source_tag_covers_every_source(self, tmp_path, monkeypatch):
+        from trainingjob_operator_tpu_torch.ops import _build
+
+        for src in _build.SRC_DIR.glob("*.cu*"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+        monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+        tag = _build.source_tag()
+        assert tag == _build.source_tag()
+        (tmp_path / "common.cuh").write_text("// edited\n")
+        assert _build.source_tag() != tag
+
+    def test_build_without_nvcc_raises(self, monkeypatch, tmp_path):
+        from trainingjob_operator_tpu_torch.ops import _build
+
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+        monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build()

@@ -1,0 +1,74 @@
+"""RMSNorm: the CUDA kernel ``csrc/rmsnorm.cu`` and its plain version.
+
+Port of the JAX package's ``ops/fused.py``.  ``rmsnorm`` dispatches on the
+tensor's device: a CUDA tensor launches the kernel (or raises), a CPU
+tensor takes ``rmsnorm_reference``.  Forward only; a tensor that requires
+grad is refused on the kernel path (training is a later slice).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from trainingjob_operator_tpu_torch.ops import _build
+
+#: Kernel launches since the last reset (chip_smoke.py reads it).
+launches = 0
+
+
+def rmsnorm_reference(x: torch.Tensor, scale: torch.Tensor,
+                      eps: float) -> torch.Tensor:
+    """Plain version: f32 mean of squares, ``rsqrt(ms + eps)``, times the
+    f32 scale, cast back to the input dtype."""
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def check_kernel_args(x: torch.Tensor, scale: torch.Tensor) -> None:
+    """Raise on inputs ``csrc/rmsnorm.cu`` does not take."""
+    d = x.shape[-1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rmsnorm kernel takes float32 or bfloat16, "
+                        f"not {x.dtype}")
+    if d % 8:
+        raise ValueError(f"rmsnorm kernel needs the last dim to be a "
+                         f"multiple of 8, got {d}")
+    if not x.is_contiguous():
+        raise ValueError("rmsnorm kernel needs a contiguous input")
+    if x.data_ptr() % 16:
+        raise ValueError("rmsnorm kernel needs a 16-byte aligned input")
+    if (scale.dtype != torch.float32 or scale.shape != (d,)
+            or not scale.is_contiguous() or scale.device != x.device):
+        raise ValueError(f"rmsnorm kernel needs a contiguous float32 scale "
+                         f"of shape ({d},) on {x.device}")
+    if x.requires_grad or scale.requires_grad:
+        raise NotImplementedError("the rmsnorm kernel is forward only")
+
+
+def rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """Launch ``csrc/rmsnorm.cu`` on a CUDA tensor."""
+    global launches
+    check_kernel_args(x, scale)
+    out = torch.empty_like(x)
+    d = x.shape[-1]
+    rows = x.numel() // d if d else 0
+    lib = _build.library()
+    code = lib.tj_rmsnorm_fwd(
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d, float(eps),
+        _build.dtype_code(x),
+        _build.stream_of(x))
+    _build.check(code, "rmsnorm_fwd")
+    launches += 1
+    return out
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis, dtype-preserving."""
+    if x.is_cuda:
+        return rmsnorm_kernel(x, scale, eps)
+    if x.device.type == "cpu":
+        return rmsnorm_reference(x, scale, eps)
+    raise ValueError(f"rmsnorm: no implementation for device {x.device}")
