@@ -12,27 +12,47 @@ script exits non-zero):
    printed as it is), then the build of every kernel under ``csrc/``
    (set-up time).
 2. kernel_checks: each kernel against its plain PyTorch version on the
-   card at the serving path's full-width shapes, with the tolerance, the
-   kernel's time, the plain version's time, the one-call PyTorch
-   yardstick's time (timed only; the port never calls it) and the bound.
+   card at the serving and training paths' full-width shapes, with the
+   tolerance, the kernel's time, the plain version's time, the one-call
+   PyTorch yardstick's time (timed only; the port never calls it) and the
+   bound.  The flash backward kernels (dQ, dK/dV) are held to about one
+   bf16 step (``BWD_TOL``) and must give bit-identical results on a second
+   run.
 3. tiny_equivalence: the tiny config in fp32 through the kernels; every
    request of a DecodeService run must get exactly the tokens ``generate``
    gives for its prompt.
-4. serve_7b: DecodeService on a seeded random-init Llama-2-7B (bf16, all 32
+4. tiny_train_equivalence: the tiny config in fp32 trains 5 steps of the
+   trainer's step (``llama_elastic.make_step_fn``: AdamW, accum 2), with
+   remat "none" and "full", once through the kernels on
+   the card and once through the plain versions on the CPU from the same
+   parameters and tokens: losses agree to 1e-4 relative at every step,
+   the first step's gradients (before any update) to rtol = atol = 1e-4.
+   Launches per microbatch of a model of L layers: flash forward L (2 L
+   under remat "full", whose backward re-runs each layer), dQ and dK/dV
+   L, RMSNorm 2 L + 1 (4 L + 1 under "full").
+5. serve_7b: DecodeService on a seeded random-init Llama-2-7B (bf16, all 32
    layers); zero stale-KV violations, every request finished, and RMSNorm
    launched 65 times per decode step and per prefill chunk.
-5. generate_7b: a 512-token prompt and 32 greedy steps; the flash kernel is
+6. generate_7b: a 512-token prompt and 32 greedy steps; the flash kernel is
    launched once per layer by the prefill.
+7. train_7b_width: the trainer's step (``llama_elastic.make_step_fn``) at
+   Llama-2-7B widths, 8 of its 32 layers (f32 masters and AdamW state for
+   all 32 need about 108 GB), bf16 compute, seq 4096, global batch 2 with
+   accum 2, remat "none": 8 steps on one repeated batch; losses finite
+   and the last below the first; per step 16 launches each of the flash
+   forward, dQ and dK/dV and 34 of RMSNorm (the formula of phase 4).
 
-Then the ``kernels`` line (launch counts from phases 4 and 5, the main
-path) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
+Then the ``kernels`` line (launch counts from phases 5, 6 and 7, the main
+paths) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when CUDA is unavailable or the package is not
 beside this script.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -46,6 +66,14 @@ EPS = 1e-5
 #: one bf16 rounding apart; f32 differs only in summation order.
 OUT_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
 LSE_ATOL = {"bfloat16": 1e-3, "float32": 1e-4}
+#: (rtol, atol as a fraction of the reference's RMS) of the flash backward
+#: kernels against the plain backward.  Both round f32 sums of the same
+#: products, in another order, to the input dtype, so under bf16 they may
+#: sit one bf16 step apart (at most 2^-7 relative); the atol only covers
+#: entries near 0.  Beside it the whole tensor's relative L2 error is held
+#: to BWD_L2_RTOL.
+BWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4)}
+BWD_L2_RTOL = {"bfloat16": 1e-3, "float32": 1e-5}
 
 
 def emit(obj) -> None:
@@ -166,7 +194,15 @@ FLASH_CASES = [
     (1, 2048, 32, 8, 128, True, 0, "bfloat16"),
     (1, 2048, 32, 32, 128, True, 256, "bfloat16"),
     (1, 1000, 32, 32, 16, True, 0, "float32"),
+    # The training path's microbatch (train_7b_width).
+    (1, 4096, 32, 32, 128, True, 0, "bfloat16"),
 ]
+#: FLASH_CASES entry of the training path's attention shape.
+TRAIN_FLASH_CASE = 6
+
+
+def flash_iters(T: int) -> int:
+    return 5 if T >= 4096 else 20 if T >= 1000 else 50
 
 
 def check_flash(torch, F, flash):
@@ -192,22 +228,12 @@ def check_flash(torch, F, flash):
             raise AssertionError(f"{tag}: out max abs err {err}")
         if lse_err > LSE_ATOL[dname] or not torch.isfinite(lse).all():
             raise AssertionError(f"{tag}: lse max abs err {lse_err}")
-        iters = 20 if T >= 1000 else 50
+        iters = flash_iters(T)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if window:
-            rows = torch.arange(T, device=dev)[:, None]
-            cols = torch.arange(T, device=dev)[None, :]
-            band = (cols <= rows) & (cols > rows - window)
+        sdpa = sdpa_fn(torch, F, T, H, Hkv, causal, window, scale)
 
-            def library():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=band, scale=scale,
-                    enable_gqa=H != Hkv)
-        else:
-            def library():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=scale,
-                    enable_gqa=H != Hkv)
+        def library():
+            return sdpa(qt, kt, vt)
         esize = q.element_size()
         bytes_moved = (2 * B * H * T * D + 2 * B * Hkv * T * D) * esize \
             + B * H * T * 4
@@ -230,6 +256,246 @@ def check_flash(torch, F, flash):
         del q, k, v, out, lse, want, want_lse
         torch.cuda.empty_cache()
     return cases
+
+
+def sdpa_fn(torch, F, T, H, Hkv, causal, window, scale):
+    """The one-call PyTorch yardstick for a flash case: SDPA over [B, H, T,
+    D] with the same mask (a boolean band for a window)."""
+    mask = None
+    if window:
+        rows = torch.arange(T, device="cuda")[:, None]
+        cols = torch.arange(T, device="cuda")[None, :]
+        mask = (cols <= rows) & (cols > rows - window)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and not window,
+            scale=scale, enable_gqa=H != Hkv)
+    return sdpa
+
+
+def grad_check(torch, got, want, dname) -> dict:
+    """How far a backward kernel's gradient lies from the plain one, at
+    BWD_TOL and BWD_L2_RTOL; ``tol_used`` > 1 or ``ok`` false fails."""
+    rtol, atol_rms = BWD_TOL[dname]
+    g, w = got.float(), want.float()
+    rms = float(w.square().mean().sqrt())
+    atol = atol_rms * rms
+    diff = (g - w).abs()
+    rel_l2 = float((g - w).norm() / w.norm())
+    tol_used = float((diff / (atol + rtol * w.abs())).max())
+    return {"max_abs_err": float(diff.max()),
+            "want_max_abs": float(w.abs().max()), "want_rms": rms,
+            "rtol": rtol, "atol": atol, "tol_used": tol_used,
+            "rel_l2_err": rel_l2, "rel_l2_rtol": BWD_L2_RTOL[dname],
+            "ok": bool(torch.isfinite(g).all()) and tol_used <= 1.0
+            and rel_l2 <= BWD_L2_RTOL[dname]}
+
+
+def check_flash_bwd(torch, F, flash):
+    """dQ and dK/dV kernels against the plain backward at FLASH_CASES, from
+    the forward kernel's out and LSE and a random dO, at BWD_TOL.  Bounds:
+    dQ does 6 D flops per visible pair (z, dp, dq) and dK/dV 8 D (z, dp,
+    dk, dv); each
+    reads q, k, v, dO, lse and delta once and writes its gradients once.
+    The library yardstick is SDPA's backward, dq, dk and dv in one call,
+    isolated from its forward: the forward runs once, untimed, and its
+    retained graph is differentiated again in each timed call (eager,
+    between CUDA events)."""
+    dq_cases, dkv_cases = [], []
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for B, T, H, Hkv, D, causal, window, dname in FLASH_CASES:
+        dtype = getattr(torch, dname)
+        q = torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype)
+        do = torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype)
+        opts = dict(causal=causal, scale=D ** -0.5, window=window)
+        out, lse = flash.flash_kernel_with_lse(q, k, v, **opts)
+        delta = flash.flash_delta(do, out)
+        args = (q, k, v, do, lse, delta)
+        dq = flash.flash_bwd_dq_kernel(*args, **opts)
+        dk, dv = flash.flash_bwd_dkv_kernel(*args, **opts)
+        want_dq = flash.flash_bwd_dq_reference(*args, **opts)
+        want_dk, want_dv = flash.flash_bwd_dkv_reference(*args, **opts)
+        deterministic_dq = torch.equal(
+            dq, flash.flash_bwd_dq_kernel(*args, **opts))
+        deterministic_dkv = all(torch.equal(a, b) for a, b in zip(
+            (dk, dv), flash.flash_bwd_dkv_kernel(*args, **opts)))
+        torch.cuda.synchronize()
+        tag = f"flash bwd B={B} T={T} H={H}/{Hkv} D={D} w={window} {dname}"
+        errs = {}
+        for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                                ("dv", dv, want_dv)):
+            errs[name] = grad_check(torch, got, want, dname)
+            if not errs[name]["ok"]:
+                raise AssertionError(f"{tag}: {name} {errs[name]}")
+        if not (deterministic_dq and deterministic_dkv):
+            raise AssertionError(f"{tag}: a second run differs "
+                                 f"(dq {deterministic_dq}, dk/dv "
+                                 f"{deterministic_dkv})")
+        iters = flash_iters(T)
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                      for x in (q, k, v))
+        lib_out = sdpa_fn(torch, F, T, H, Hkv, causal, window,
+                          opts["scale"])(qt, kt, vt)
+        lib_do = do.transpose(1, 2)
+        library_ms = eager_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), lib_do, retain_graph=True), iters)
+        del lib_out
+        esize = q.element_size()
+        pairs = B * H * visible_pairs(T, causal, window)
+        q_bytes = B * H * T * D * esize
+        kv_bytes = B * Hkv * T * D * esize
+        stat_bytes = 2 * B * H * T * 4
+        common = {"B": B, "T": T, "Hq": H, "Hkv": Hkv, "D": D,
+                  "causal": causal, "window": window, "dtype": dname,
+                  "deterministic": True, "library_ms": library_ms}
+        t_bound, by = bound(3 * q_bytes + 2 * kv_bytes + stat_bytes,
+                            6 * D * pairs, dname)
+        dq_cases.append({
+            **common, "max_abs_err": errs["dq"]["max_abs_err"],
+            "dq": errs["dq"],
+            "ms": time_ms(lambda: flash.flash_bwd_dq_kernel(*args, **opts),
+                          iters),
+            "eager_ms": eager_ms(
+                lambda: flash.flash_bwd_dq_kernel(*args, **opts), iters),
+            "plain_ms": time_ms(
+                lambda: flash.flash_bwd_dq_reference(*args, **opts), 3),
+            "bound_ms": t_bound, "bound_by": by})
+        t_bound, by = bound(2 * q_bytes + 4 * kv_bytes + stat_bytes,
+                            8 * D * pairs, dname)
+        dkv_cases.append({
+            **common, "max_abs_err": max(errs["dk"]["max_abs_err"],
+                                         errs["dv"]["max_abs_err"]),
+            "dk": errs["dk"], "dv": errs["dv"],
+            "ms": time_ms(lambda: flash.flash_bwd_dkv_kernel(*args, **opts),
+                          iters),
+            "eager_ms": eager_ms(
+                lambda: flash.flash_bwd_dkv_kernel(*args, **opts), iters),
+            "plain_ms": time_ms(
+                lambda: flash.flash_bwd_dkv_reference(*args, **opts), 3),
+            "bound_ms": t_bound, "bound_by": by})
+        del q, k, v, do, out, lse, delta, dq, dk, dv, want_dq, want_dk
+        del want_dv, qt, kt, vt, lib_do
+        torch.cuda.empty_cache()
+    return dq_cases, dkv_cases
+
+
+def train_launches(L: int, remat: str, micro_steps: int):
+    """Kernel launches of ``micro_steps`` microbatch steps of an L-layer
+    model (phase 4's formula)."""
+    full = remat == "full"
+    return {"rmsnorm_fwd": micro_steps * ((4 if full else 2) * L + 1),
+            "flash_attention_fwd": micro_steps * (2 if full else 1) * L,
+            "flash_attention_bwd_dq": micro_steps * L,
+            "flash_attention_bwd_dkv": micro_steps * L}
+
+
+def tiny_train_equivalence(torch, llama, llama_elastic, train):
+    """fp32 tiny config, 5 steps of the trainer's step
+    (``llama_elastic.make_step_fn``: accum 2, AdamW) through the kernels on
+    the card and through the plain versions on the CPU."""
+    from trainingjob_operator_tpu_torch import ops
+
+    base = llama.LlamaConfig.tiny()
+    cfg = llama.LlamaConfig(**{**base.__dict__, "dtype": "float32"})
+    steps, accum = 5, 2
+    init = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                             master=True)
+    batches = [torch.randint(0, cfg.vocab_size, (4, 65),
+                             generator=torch.Generator().manual_seed(10 + i))
+               for i in range(steps)]
+    result = {}
+    for remat in ("none", "full"):
+        runs = {}
+        for where in ("cpu", "cuda"):
+            params = train.trainable_copy(init, where)
+            step_fn = llama_elastic.make_step_fn(params, cfg, accum=accum,
+                                                 lr=3e-4, remat=remat)
+            ops.reset_launch_counts()
+            losses, first_grads = [], None
+            for i, tokens in enumerate(batches):
+                losses.append(float(step_fn(tokens.to(where))))
+                if i == 0:
+                    # The step leaves its gradients in the leaves' .grad,
+                    # and the AdamW update does not clear them.
+                    first_grads = [p.grad.detach().cpu().clone()
+                                   for p in train.tree_leaves(params)]
+            runs[where] = (losses, first_grads, ops.launch_counts())
+        (cpu_l, cpu_g, cpu_n), (gpu_l, gpu_g, gpu_n) = runs["cpu"], \
+            runs["cuda"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gpu_l, cpu_l))
+        grad_viol = max(max_violation(a, b, 1e-4, 1e-4)
+                        for a, b in zip(gpu_g, cpu_g))
+        grad_err = max(float((a - b).abs().max())
+                       for a, b in zip(gpu_g, cpu_g))
+        expected = train_launches(cfg.n_layers, remat, steps * accum)
+        if loss_rel > 1e-4 or not all(map(math.isfinite, gpu_l)):
+            raise AssertionError(f"tiny train remat={remat}: losses "
+                                 f"{gpu_l} vs {cpu_l}")
+        if grad_viol > 0:
+            raise AssertionError(f"tiny train remat={remat}: step-1 "
+                                 f"gradients differ by {grad_err}")
+        if gpu_n != expected or any(cpu_n.values()):
+            raise AssertionError(f"tiny train remat={remat}: launches "
+                                 f"{gpu_n} (cpu {cpu_n}), expected "
+                                 f"{expected}")
+        result[remat] = {"losses_cuda": gpu_l, "losses_cpu": cpu_l,
+                         "loss_max_rel_err": loss_rel,
+                         "grad_max_abs_err": grad_err, "launches": gpu_n}
+    return {"steps": steps, "accum": accum, "loss_rtol": 1e-4,
+            "grad_rtol": 1e-4, "grad_atol": 1e-4, **result}
+
+
+def train_7b_width(torch, llama, llama_elastic):
+    """The trainer's step at Llama-2-7B widths, 8 layers (see the module
+    docstring)."""
+    from trainingjob_operator_tpu_torch import ops
+    from trainingjob_operator_tpu_torch.workloads import train
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=8)
+    seq, batch, accum, steps, lr = 4096, 2, 2, 8, 3e-4
+    remat = train.default_remat(cfg.n_layers)
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev, master=True)
+    for leaf in train.tree_leaves(params):
+        leaf.requires_grad_(True)
+    step_fn = llama_elastic.make_step_fn(params, cfg, accum=accum, lr=lr,
+                                         remat=remat)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(float(step_fn(tokens)))
+        step_s.append(time.perf_counter() - t)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = train_launches(cfg.n_layers, remat, accum)
+    if counts != {k: n * steps for k, n in per_step.items()}:
+        raise AssertionError(f"7B-width train: launches {counts}, expected "
+                             f"{per_step} per step x {steps}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"7B-width train: losses {losses}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    return {"n_layers": cfg.n_layers, "n_params": llama.num_params(cfg),
+            "seq": seq, "global_batch": batch, "accum": accum,
+            "remat": remat, "lr": lr, "init_s": init_s, "losses": losses,
+            "step_s": step_s, "step_s_median": steady,
+            "tokens_per_s": batch * seq / steady,
+            "peak_mem_gib": peak / 2 ** 30,
+            "launches_per_step": per_step, "launches": counts,
+            "step_profile": profile_steps(torch, lambda: step_fn(tokens),
+                                          n=2)}
 
 
 def tiny_equivalence(torch, llama, decode, serve):
@@ -264,7 +530,7 @@ def tiny_equivalence(torch, llama, decode, serve):
                              f"from generate")
     if stats["stale_kv_violations"]:
         raise AssertionError("tiny fp32: stale KV")
-    if min(counts.values()) == 0:
+    if not (counts["rmsnorm_fwd"] and counts["flash_attention_fwd"]):
         raise AssertionError(f"tiny fp32 run skipped a kernel: {counts}")
     return {"requests": 12, "serve_equals_generate": True,
             "stale_kv_violations": 0, "launches": counts}
@@ -428,7 +694,11 @@ def main() -> int:
     from trainingjob_operator_tpu_torch import ops
     from trainingjob_operator_tpu_torch.models import decode, llama
     from trainingjob_operator_tpu_torch.ops import _build, fused
-    from trainingjob_operator_tpu_torch.workloads import serve
+    from trainingjob_operator_tpu_torch.workloads import (
+        llama_elastic,
+        serve,
+        train,
+    )
 
     flash = sys.modules["trainingjob_operator_tpu_torch.ops.flash_attention"]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -455,11 +725,16 @@ def main() -> int:
 
     rms_cases = check_rmsnorm(torch, F, fused)
     flash_cases = check_flash(torch, F, flash)
+    dq_cases, dkv_cases = check_flash_bwd(torch, F, flash)
     emit({"phase": "kernel_checks", "device": name, "nvidia_smi": smi,
-          "rmsnorm_fwd": rms_cases, "flash_attention_fwd": flash_cases})
+          "rmsnorm_fwd": rms_cases, "flash_attention_fwd": flash_cases,
+          "flash_attention_bwd_dq": dq_cases,
+          "flash_attention_bwd_dkv": dkv_cases})
 
     emit({"phase": "tiny_equivalence",
           **tiny_equivalence(torch, llama, decode, serve)})
+    emit({"phase": "tiny_train_equivalence",
+          **tiny_train_equivalence(torch, llama, llama_elastic, train)})
 
     cfg = llama.LlamaConfig.llama2_7b()
     t0 = time.perf_counter()
@@ -473,9 +748,14 @@ def main() -> int:
     generated = generate_7b(torch, decode, params, cfg)
     emit({"phase": "generate_7b", "device": name, "nvidia_smi": smi,
           **generated})
+    del params
+    torch.cuda.empty_cache()
+    trained = train_7b_width(torch, llama, llama_elastic)
+    emit({"phase": "train_7b_width", "device": name, "nvidia_smi": smi,
+          **trained})
 
     launches = {k: served["launches"][k] + generated["launches"][k]
-                for k in ops.launch_counts()}
+                + trained["launches"][k] for k in ops.launch_counts()}
     emit({"kernels": [
         summary("rmsnorm_fwd", "cuda",
                 "trainingjob_operator_tpu_torch/csrc/rmsnorm.cu",
@@ -486,6 +766,16 @@ def main() -> int:
                 "trainingjob_operator_tpu/ops/flash_attention.py:40",
                 flash_cases, flash_cases[0],
                 launches["flash_attention_fwd"]),
+        summary("flash_attention_bwd_dq", "cuda",
+                "trainingjob_operator_tpu_torch/csrc/flash_bwd.cu",
+                "trainingjob_operator_tpu/ops/flash_attention.py:170",
+                dq_cases, dq_cases[TRAIN_FLASH_CASE],
+                launches["flash_attention_bwd_dq"]),
+        summary("flash_attention_bwd_dkv", "cuda",
+                "trainingjob_operator_tpu_torch/csrc/flash_bwd.cu",
+                "trainingjob_operator_tpu/ops/flash_attention.py:219",
+                dkv_cases, dkv_cases[TRAIN_FLASH_CASE],
+                launches["flash_attention_bwd_dkv"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

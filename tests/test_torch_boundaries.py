@@ -3,7 +3,8 @@
 - The port package and ``chip_smoke.py`` import neither ``jax`` nor the
   JAX package (AST scan), and every port module imports with ``jax``
   made unimportable.
-- The port's copy of the serve env names agrees with the JAX package's.
+- The port's copy of the env names (serve knobs, checkpoint root, step
+  times) agrees with the JAX package's.
 - Without CUDA, the default-device constructors and entry points raise
   ``RuntimeError`` instead of running on the CPU.
 """
@@ -87,7 +88,7 @@ def test_serve_env_names_agree_with_the_jax_package():
     from trainingjob_operator_tpu_torch import constants as tconst
 
     names = [n for n in dir(tconst) if n.endswith("_ENV")]
-    assert len(names) == 7
+    assert len(names) == 9
     for name in names:
         assert getattr(tconst, name) == getattr(jconst, name)
 
@@ -125,7 +126,7 @@ class TestCudaByDefault:
                 call()
         assert resolve_device("cpu") == torch.device("cpu")
 
-    @pytest.mark.parametrize("module", ["serve", "generate"])
+    @pytest.mark.parametrize("module", ["serve", "generate", "llama_elastic"])
     def test_main_raises_before_any_work(self, no_cuda, monkeypatch, module):
         import importlib
 

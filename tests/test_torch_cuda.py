@@ -14,7 +14,11 @@ import torch
 from trainingjob_operator_tpu_torch import ops
 from trainingjob_operator_tpu_torch.models import decode, llama
 from trainingjob_operator_tpu_torch.ops import fused
-from trainingjob_operator_tpu_torch.workloads import serve
+from trainingjob_operator_tpu_torch.workloads import (
+    llama_elastic,
+    serve,
+    train,
+)
 
 flash = importlib.import_module(
     "trainingjob_operator_tpu_torch.ops.flash_attention")
@@ -24,6 +28,10 @@ pytestmark = pytest.mark.cuda
 #: (rtol, atol): bf16 outputs may be one bf16 rounding apart; f32 differs
 #: only in summation order.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+#: (rtol, atol as a fraction of the reference's RMS) of the flash backward
+#: kernels: both round the same f32 sums to the input dtype, so bf16
+#: gradients may sit one bf16 step (at most 2^-7 relative) apart.
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
 
 
 @pytest.fixture
@@ -87,9 +95,104 @@ def test_flash_kernel_takes_strided_inputs(dev):
 
 
 def test_kernels_refuse_grad(dev):
+    # A bare kernel call on a tensor that requires grad would cut the
+    # graph; the ops' autograd Functions run the kernels and differentiate.
     x = torch.randn(2, 64, device=dev, requires_grad=True)
+    scale = torch.ones(64, device=dev)
     with pytest.raises(NotImplementedError):
-        ops.rmsnorm(x, torch.ones(64, device=dev))
+        fused.rmsnorm_kernel(x, scale, 1e-5)
+    ops.reset_launch_counts()
+    ops.rmsnorm(x, scale).sum().backward()
+    assert ops.launch_counts()["rmsnorm_fwd"] == 1
+    want = torch.autograd.grad(
+        fused.rmsnorm_reference(x, scale, 1e-5).sum(), x)[0]
+    torch.testing.assert_close(x.grad, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal,H,Hkv,T,D,window,dtype", [
+    (True, 4, 4, 64, 16, 0, torch.float32),
+    (False, 4, 2, 48, 16, 0, torch.float32),
+    (True, 4, 2, 100, 32, 8, torch.float32),
+    (True, 4, 2, 130, 64, 0, torch.bfloat16),
+    (True, 8, 8, 200, 128, 16, torch.bfloat16),
+    (False, 4, 1, 70, 128, 0, torch.bfloat16),
+])
+def test_flash_backward_kernels_match_plain(dev, causal, H, Hkv, T, D,
+                                            window, dtype):
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(2, T, H, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, T, Hkv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, T, Hkv, D, generator=g, device=dev).to(dtype)
+    do = torch.randn(2, T, H, D, generator=g, device=dev).to(dtype)
+    opts = dict(causal=causal, scale=D ** -0.5, window=window)
+    out, lse = flash.flash_kernel_with_lse(q, k, v, **opts)
+    delta = flash.flash_delta(do, out)
+    ops.reset_launch_counts()
+    dq = flash.flash_bwd_dq_kernel(q, k, v, do, lse, delta, **opts)
+    dk, dv = flash.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **opts)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    want_dq = flash.flash_bwd_dq_reference(q, k, v, do, lse, delta, **opts)
+    want_dk, want_dv = flash.flash_bwd_dkv_reference(q, k, v, do, lse,
+                                                     delta, **opts)
+    rtol, atol_rms = BWD_TOL[dtype]
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        want = want.float()
+        atol = atol_rms * float(want.square().mean().sqrt())
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+    # No atomics: a second run is bit for bit the first.
+    assert torch.equal(dq, flash.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                     **opts))
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dk, dv), flash.flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                             **opts)))
+
+
+def test_flash_autograd_goes_through_the_kernels(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(1, 40, 4, 16, generator=g, device=dev)
+               .transpose(1, 2).contiguous().transpose(1, 2)
+               .requires_grad_(True) for _ in range(3))
+    ops.reset_launch_counts()
+    flash.flash_attention(q, k, v, causal=True, window=7).square().sum() \
+        .backward()
+    counts = ops.launch_counts()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    grads = [t.grad for t in (q, k, v)]
+    refs = [t.detach().cpu().requires_grad_(True) for t in (q, k, v)]
+    flash.flash_attention(*refs, causal=True, window=7).square().sum() \
+        .backward()
+    for got, ref in zip(grads, refs):
+        torch.testing.assert_close(got.cpu(), ref.grad, rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
+    base = llama.LlamaConfig.tiny()
+    cfg = llama.LlamaConfig(**{**base.__dict__, "dtype": "float32"})
+    init = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                             master=True)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 33),
+                           generator=torch.Generator().manual_seed(1))
+    losses = {}
+    for where in ("cpu", "cuda"):
+        params = train.trainable_copy(init, where)
+        step = llama_elastic.make_step_fn(params, cfg, accum=2, lr=1e-3)
+        ops.reset_launch_counts()
+        losses[where] = [float(step(tokens.to(where))) for _ in range(3)]
+        if where == "cuda":
+            counts = ops.launch_counts()
+    L = cfg.n_layers
+    assert counts == {"rmsnorm_fwd": 3 * 2 * (2 * L + 1),
+                      "flash_attention_fwd": 3 * 2 * L,
+                      "flash_attention_bwd_dq": 3 * 2 * L,
+                      "flash_attention_bwd_dkv": 3 * 2 * L}
+    torch.testing.assert_close(losses["cuda"], losses["cpu"], rtol=1e-4,
+                               atol=0)
 
 
 def test_tiny_serve_equals_generate_through_the_kernels(dev):

@@ -1,1 +1,2 @@
-"""Llama model, int8 quantization and KV-cache decoding (PyTorch port)."""
+"""Llama model and loss, int8 quantization and KV-cache decoding (PyTorch
+port)."""

@@ -157,8 +157,8 @@ def decode_step(params, cache, token: torch.Tensor, t: int,
     h = dequantize_rows(params["tok_embed"], token, compute)[:, None, :]
     pos = torch.full((B, 1), t, dtype=torch.long, device=token.device)
     rope = llama._rope_tables(pos, c.head_dim, c.rope_theta, compute)
-    for i in range(c.n_layers):
-        layer = llama.layer_slice(params["layers"], i)
+    for i, layer in enumerate(llama.unstack_layers(params["layers"],
+                                                   c.n_layers)):
         x = llama._rmsnorm(h, layer["attn_norm"], c.norm_eps)
         q, k, v = _qkv(x, layer, rope, compute, c)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
@@ -195,8 +195,8 @@ def serve_step(params, cache, token: torch.Tensor, ts: torch.Tensor,
     h = dequantize_rows(params["tok_embed"], token, compute)[:, None, :]
     rope = llama._rope_tables(ts[:, None], c.head_dim, c.rope_theta, compute)
     tb = ts.view(B, 1, 1, 1)
-    for i in range(c.n_layers):
-        layer = llama.layer_slice(params["layers"], i)
+    for i, layer in enumerate(llama.unstack_layers(params["layers"],
+                                                   c.n_layers)):
         x = llama._rmsnorm(h, layer["attn_norm"], c.norm_eps)
         q, k, v = _qkv(x, layer, rope, compute, c)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
@@ -254,8 +254,8 @@ def prefill_chunk(params, cache, tokens: torch.Tensor, slot: int, t0: int,
     positions = t0 + torch.arange(C, device=tokens.device)
     rope = llama._rope_tables(positions[None, :], c.head_dim, c.rope_theta,
                               compute)
-    for i in range(c.n_layers):
-        layer = llama.layer_slice(params["layers"], i)
+    for i, layer in enumerate(llama.unstack_layers(params["layers"],
+                                                   c.n_layers)):
         x = llama._rmsnorm(h, layer["attn_norm"], c.norm_eps)
         q, k, v = _qkv(x, layer, rope, compute, c)
         row_k, row_v = cache["k"][i, slot], cache["v"][i, slot]

@@ -1,10 +1,10 @@
-"""Llama-2 family for the PyTorch port: config, parameters, forward.
+"""Llama-2 family for the PyTorch port: config, parameters, forward, loss.
 
 Port of the JAX package's ``models/llama.py`` (single-device path: no mesh,
-pipeline, sequence parallelism or remat).  The parameter tree keeps the JAX
-layout -- a nested dict with stacked ``[L, in, out]`` layer leaves and
-``x @ W`` products, under the same key paths as the JAX ``init_params`` --
-so a JAX parameter tree carries across leaf for leaf
+pipeline or sequence parallelism; remat "none" and "full").  The parameter
+tree keeps the JAX layout -- a nested dict with stacked ``[L, in, out]``
+layer leaves and ``x @ W`` products, under the same key paths as the JAX
+``init_params`` -- so a JAX parameter tree carries across leaf for leaf
 (``params_from_numpy``).
 """
 
@@ -12,11 +12,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from trainingjob_operator_tpu_torch import resolve_device
 from trainingjob_operator_tpu_torch.ops import flash_attention, rmsnorm
@@ -69,21 +70,28 @@ class LlamaConfig:
         return getattr(torch, self.dtype)
 
 
-def _leaf_dtype(name: str, compute: torch.dtype) -> torch.dtype:
+def _leaf_dtype(name: str, compute: torch.dtype,
+                master: bool = False) -> torch.dtype:
     # Matmul weights, tok_embed and lm_head live in the compute dtype; norm
-    # scales stay f32.
-    if name in MATMUL_LEAVES or name in ("tok_embed", "lm_head"):
+    # scales stay f32.  Training keeps every leaf an f32 master.
+    if not master and (name in MATMUL_LEAVES
+                       or name in ("tok_embed", "lm_head")):
         return compute
     return torch.float32
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", *, master: bool = False) -> Dict[str, Any]:
     """Seeded random init on ``device``, same tree and scales as the JAX
     ``init_params`` (normal * in_dim ** -0.5; embeddings and head * 0.02;
     norms 1).  The numbers differ from JAX's (another generator).  Leaves
     are drawn in f32 one layer at a time and stored in their leaf dtype, so
-    the peak is one f32 layer slice, not an f32 copy of the model."""
+    the peak is one f32 layer slice, not an f32 copy of the model.
+
+    ``master=True`` keeps every leaf f32, as the JAX package keeps its
+    parameters for training: ``forward`` casts each to the compute dtype
+    where it is used, and the gradient reaches the f32 leaf through that
+    cast."""
     dev = resolve_device(device)
     c = config
     compute = c.compute_dtype
@@ -91,7 +99,8 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
 
     def dense(name, shape, scale=None):
         scale = scale if scale is not None else shape[-2] ** -0.5
-        out = torch.empty(shape, dtype=_leaf_dtype(name, compute), device=dev)
+        out = torch.empty(shape, dtype=_leaf_dtype(name, compute, master),
+                          device=dev)
         rows = out if len(shape) == 3 else out[None]
         for row in rows:
             row.copy_(torch.randn(row.shape, generator=generator,
@@ -124,7 +133,8 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
 
 
 def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig,
-                      device="cuda") -> Dict[str, Any]:
+                      device="cuda", *, master: bool = False
+                      ) -> Dict[str, Any]:
     """The JAX package's parameter tree (numpy leaves, f32 masters or int8
     ``{"q", "s"}`` leaves from ``quant.quantize_weights``) -> the port's.
 
@@ -132,6 +142,7 @@ def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig,
     compute dtype.  That is bit-identical to the JAX forward's per-use
     ``astype(compute)`` and halves their memory against f32 masters under
     bf16.  Norm scales stay f32; int8 leaves keep int8 ``q`` and f32 ``s``.
+    ``master=True`` keeps every float leaf f32, for training.
     """
     dev = resolve_device(device)
     compute = config.compute_dtype
@@ -145,21 +156,60 @@ def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig,
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         arr = torch.from_numpy(np.array(node, dtype=np.float32))
-        return arr.to(dev, _leaf_dtype(name, compute))
+        return arr.to(dev, _leaf_dtype(name, compute, master))
 
     return walk(tree)
 
 
-def layer_slice(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i`` of the stacked layer tree (the body of the JAX
-    ``lax.scan`` over layers becomes a Python loop over these views)."""
-    if isinstance(layers, dict):
-        return {k: layer_slice(v, i) for k, v in layers.items()}
-    return layers[i]
+def unstack_layers(layers: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The stacked layer tree as ``n`` per-layer trees of views, by
+    ``torch.unbind`` (the body of the JAX ``lax.scan`` over layers becomes a
+    Python loop over them).  Its backward stacks the ``n`` layer gradients
+    into each leaf's gradient in one pass; indexing one layer at a time
+    would scatter each layer's gradient into a zero tensor of the whole
+    stack."""
+    per_key = {k: (unstack_layers(v, n) if isinstance(v, dict)
+                   else torch.unbind(v)) for k, v in layers.items()}
+    return [{k: per_key[k][i] for k in per_key} for i in range(n)]
 
 
 def _rmsnorm(x, scale, eps):
     return rmsnorm(x, scale, eps)
+
+
+#: Remat policies of the JAX package that are not ported yet, with the
+#: ROADMAP.md item that ports them.
+UNPORTED_REMAT = {"attn": "queue 1 item 2a", "dots": "queue 1 item 2a"}
+
+
+def remat_policy(remat) -> str:
+    """``remat`` as "none" or "full" (bools and None as the JAX
+    ``_remat_wrap`` reads them); raises ``ValueError`` for "attn" and
+    "dots", which are not ported, and for an unknown policy."""
+    if remat in (False, None, "none"):
+        return "none"
+    if remat in (True, "full"):
+        return "full"
+    if remat in UNPORTED_REMAT:
+        raise ValueError(f"remat policy {remat!r} is not ported yet "
+                         f"(ROADMAP.md {UNPORTED_REMAT[remat]}); use 'none' "
+                         f"or 'full'")
+    raise ValueError(f"unknown remat policy {remat!r}; expected bool, "
+                     f"'none', 'full', 'attn' or 'dots'")
+
+
+def _remat_wrap(block, remat):
+    """The JAX ``_remat_wrap`` (``llama.py:164-191``) for "none" (save
+    everything) and "full" (save only the layer's inputs; the backward
+    re-runs the whole layer, its kernels included) through
+    ``torch.utils.checkpoint``."""
+    if remat_policy(remat) == "none":
+        return block
+
+    def wrapped(*args):
+        return checkpoint(block, *args, use_reentrant=False)
+
+    return wrapped
 
 
 def _rope_tables(positions: torch.Tensor, d: int, theta: float,
@@ -193,8 +243,28 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
                                         x.dtype))
 
 
+def _block(h, layer, cos, sin, c: LlamaConfig):
+    """One decoder layer: attention then MLP, each pre-normed and added to
+    the residual stream h [B, T, D]; returns (h, k, v)."""
+    compute = c.compute_dtype
+    B, T = h.shape[:2]
+    attn, mlp = layer["attn"], layer["mlp"]
+    x = _rmsnorm(h, layer["attn_norm"], c.norm_eps)
+    q = (x @ attn["wq"].to(compute)).view(B, T, c.n_heads, c.head_dim)
+    k = (x @ attn["wk"].to(compute)).view(B, T, c.n_kv_heads, c.head_dim)
+    v = (x @ attn["wv"].to(compute)).view(B, T, c.n_kv_heads, c.head_dim)
+    q = _apply_rope(q, cos, sin)
+    k = _apply_rope(k, cos, sin)
+    o = flash_attention(q, k, v, causal=True, window=c.sliding_window)
+    h = h + o.reshape(B, T, c.dim) @ attn["wo"].to(compute)
+    x = _rmsnorm(h, layer["mlp_norm"], c.norm_eps)
+    gate = F.silu(x @ mlp["w_gate"].to(compute))
+    up = x @ mlp["w_up"].to(compute)
+    return h + (gate * up) @ mlp["w_down"].to(compute), k, v
+
+
 def forward(params: Dict[str, Any], tokens: torch.Tensor,
-            config: LlamaConfig, *, return_kv: bool = False,
+            config: LlamaConfig, *, remat=False, return_kv: bool = False,
             return_hidden: bool = False):
     """Logits for tokens [B, T] -> [B, T, vocab] f32.
 
@@ -202,7 +272,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     per-layer projections stacked [L, B, T, Hkv, Dh] (the decode prefill
     reuses this forward).  With ``return_hidden`` returns the final-norm
     hidden states [B, T, D] instead of logits.  The residual stream stays in
-    the compute dtype; attention is the flash kernel on the card.
+    the compute dtype; attention is the flash kernel on the card.  ``remat``
+    is "none" or "full" (``_remat_wrap``).
     """
     c = config
     compute = c.compute_dtype
@@ -210,23 +281,10 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     h = params["tok_embed"].to(compute)[tokens]
     pos = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     cos, sin = _rope_tables(pos, c.head_dim, c.rope_theta, compute)
+    block = _remat_wrap(_block, remat)
     ks, vs = [], []
-    layers = params["layers"]
-    for i in range(c.n_layers):
-        layer = layer_slice(layers, i)
-        attn, mlp = layer["attn"], layer["mlp"]
-        x = _rmsnorm(h, layer["attn_norm"], c.norm_eps)
-        q = (x @ attn["wq"].to(compute)).view(B, T, c.n_heads, c.head_dim)
-        k = (x @ attn["wk"].to(compute)).view(B, T, c.n_kv_heads, c.head_dim)
-        v = (x @ attn["wv"].to(compute)).view(B, T, c.n_kv_heads, c.head_dim)
-        q = _apply_rope(q, cos, sin)
-        k = _apply_rope(k, cos, sin)
-        o = flash_attention(q, k, v, causal=True, window=c.sliding_window)
-        h = h + o.reshape(B, T, c.dim) @ attn["wo"].to(compute)
-        x = _rmsnorm(h, layer["mlp_norm"], c.norm_eps)
-        gate = F.silu(x @ mlp["w_gate"].to(compute))
-        up = x @ mlp["w_up"].to(compute)
-        h = h + (gate * up) @ mlp["w_down"].to(compute)
+    for layer in unstack_layers(params["layers"], c.n_layers):
+        h, k, v = block(h, layer, cos, sin, c)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -237,6 +295,52 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     if return_kv:
         return logits, (torch.stack(ks), torch.stack(vs))
     return logits
+
+
+def _chunked_ce(h, lm_head, targets, chunk: int, compute):
+    """Next-token CE without the full [B, T, vocab] logits (JAX
+    ``_chunked_ce``, ``llama.py:413-441``): each ``chunk``-long sequence
+    slice computes its f32 logits and summed CE under a checkpoint, so one
+    chunk's logits are alive at a time in the forward and the backward.
+    The sum over chunks is divided by B * T."""
+    B, T, _ = h.shape
+
+    def body(hh, tt, w):
+        logits = (hh @ w.to(compute)).float()
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               tt.reshape(-1), reduction="sum")
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(T // chunk):
+        cols = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(body, h[:, cols], targets[:, cols],
+                                   lm_head, use_reentrant=False)
+    return total / (B * T)
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            config: LlamaConfig, *, remat=False, ce_chunk: int = 0):
+    """Next-token cross-entropy, a scalar f32 tensor; batch: {"tokens":
+    [B, T+1]}.  The CE is optax's ``softmax_cross_entropy_with_integer_
+    labels`` on f32 logits, averaged over B * T.
+
+    ``ce_chunk`` > 0 (dividing T) computes the head and CE in sequence
+    chunks (``_chunked_ce``); a chunk that does not divide T raises rather
+    than silently falling back to the whole logits."""
+    c = config
+    tokens = batch["tokens"]
+    T = tokens.shape[1] - 1
+    targets = tokens[:, 1:].long()
+    if ce_chunk:
+        if T % ce_chunk != 0:
+            raise ValueError(f"ce_chunk={ce_chunk} does not divide seq {T}")
+        h = forward(params, tokens[:, :-1], c, remat=remat,
+                    return_hidden=True)
+        return _chunked_ce(h, params["lm_head"], targets, ce_chunk,
+                           c.compute_dtype)
+    logits = forward(params, tokens[:, :-1], c, remat=remat)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
 
 
 def num_params(config: LlamaConfig) -> int:

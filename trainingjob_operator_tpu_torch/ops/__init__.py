@@ -21,9 +21,13 @@ from trainingjob_operator_tpu_torch.ops.fused import rmsnorm  # noqa: F401
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``."""
     return {"rmsnorm_fwd": _fused.launches,
-            "flash_attention_fwd": _flash.launches}
+            "flash_attention_fwd": _flash.launches,
+            "flash_attention_bwd_dq": _flash.bwd_dq_launches,
+            "flash_attention_bwd_dkv": _flash.bwd_dkv_launches}
 
 
 def reset_launch_counts() -> None:
     _fused.launches = 0
     _flash.launches = 0
+    _flash.bwd_dq_launches = 0
+    _flash.bwd_dkv_launches = 0

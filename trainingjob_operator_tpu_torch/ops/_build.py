@@ -43,6 +43,12 @@ SIGNATURES = {
     # then (b, t, h, d) strides of q, k, v and o, then the stream
     "tj_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F]
     + [_L] * 16 + [_P],
+    # q, k, v, dout, lse, delta, dq, B, T, Hq, Hkv, D, dtype, causal,
+    # window, scale, then (b, t, h, d) strides of q, k, v, dout and dq,
+    # then the stream
+    "tj_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F] + [_L] * 20 + [_P],
+    # as tj_flash_bwd_dq with dk, dv for dq and the strides of both
+    "tj_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F] + [_L] * 24 + [_P],
 }
 
 #: dtype codes the C entry points take (csrc/common.cuh kF32, kBF16).

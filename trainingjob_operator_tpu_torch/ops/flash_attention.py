@@ -1,12 +1,14 @@
-"""Flash-attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` and its
-plain version.
+"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
+``csrc/flash_bwd.cu`` (dQ and dK/dV), each beside its plain version.
 
-Port of the JAX package's ``ops/flash_attention.py`` forward.  The public
+Port of the JAX package's ``ops/flash_attention.py``.  The public
 functions take ``[B, T, H, D]`` tensors (k/v may have fewer heads: GQA)
-and dispatch on the tensor's device: a CUDA tensor launches the kernel (or
-raises), a CPU tensor takes the plain version.  Forward only: the kernel
-path refuses inputs that require grad; the backward kernels come with the
-training slice.
+and are differentiable through ``_Flash``, the counterpart of the JAX
+``custom_vjp`` ``_flash``: its forward saves ``(q, k, v, out, lse)``, its
+backward computes ``delta = rowsum(dO * O)`` in plain PyTorch (XLA does it
+in JAX) and then the FlashAttention-2 gradients.  Every step dispatches on
+the tensor's device: a CUDA tensor launches the kernel (or raises), a CPU
+tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -18,37 +20,49 @@ import torch
 from trainingjob_operator_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-#: Head dims the kernel is instantiated for.
+#: Head dims the kernels are instantiated for.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
-#: Kernel launches since the last reset (chip_smoke.py reads it).
+#: Kernel launches since the last reset (chip_smoke.py reads them).
 launches = 0
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
+
+
+def _mask(T: int, causal: bool, window: int, device):
+    """[T, T] bool, True where query row i may see key column j; None when
+    every pair is visible."""
+    if not causal:
+        return None
+    ones = torch.ones((T, T), dtype=torch.bool, device=device)
+    mask = torch.tril(ones)
+    if window:
+        # Banded: row i sees cols (i - window, i].
+        mask = mask & ~torch.tril(ones, -window)
+    return mask
+
+
+def _repeat_kv(x, H: int):
+    """[B, Hkv, T, D] -> [B, H, T, D]: query head h reads KV head
+    h // (H / Hkv)."""
+    Hkv = x.shape[1]
+    return x if H == Hkv else torch.repeat_interleave(x, H // Hkv, dim=1)
 
 
 def _scores(q, k, *, scale: float, causal: bool, window: int = 0):
     """Masked f32 score matrix [B, H, Tq, Tk] (GQA keys repeated);
     q/k in [B, H, T, D]."""
-    H, T = q.shape[1], q.shape[2]
-    Hkv = k.shape[1]
-    if H != Hkv:
-        k = torch.repeat_interleave(k, H // Hkv, dim=1)
+    k = _repeat_kv(k, q.shape[1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        ones = torch.ones((T, T), dtype=torch.bool, device=q.device)
-        mask = torch.tril(ones)
-        if window:
-            # Banded: row i sees cols (i - window, i].
-            mask = mask & ~torch.tril(ones, -window)
+    mask = _mask(q.shape[2], causal, window, q.device)
+    if mask is not None:
         s = torch.where(mask[None, None], s, NEG_INF)
     return s
 
 
 def _reference(q, k, v, *, scale: float, causal: bool, window: int = 0):
     """Plain version, [B, H, T, D] layout, f32 softmax statistics."""
-    H = q.shape[1]
-    Hkv = v.shape[1]
-    if H != Hkv:
-        v = torch.repeat_interleave(v, H // Hkv, dim=1)
+    v = _repeat_kv(v, q.shape[1])
     s = _scores(q, k, scale=scale, causal=causal, window=window)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)
@@ -90,7 +104,8 @@ def _check_common(q, k, v, causal, scale, window) -> float:
 
 
 def check_kernel_args(q, k, v) -> None:
-    """Raise on inputs ``csrc/flash_fwd.cu`` does not take."""
+    """Raise on inputs ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` do
+    not take."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
@@ -101,10 +116,13 @@ def check_kernel_args(q, k, v) -> None:
                          f"{KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
     if not (k.device == v.device == q.device):
         raise ValueError("flash kernel needs q, k and v on one device")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        # Called bare, a kernel would return a tensor cut off from the
+        # graph; ``flash_attention`` runs them inside ``_Flash``.
         raise NotImplementedError(
-            "the flash kernel is forward only; its backward comes with "
-            "the training slice")
+            "the flash kernel wrappers have no backward of their own; call "
+            "flash_attention")
 
 
 def flash_kernel_with_lse(q, k, v, *, causal: bool, scale: float,
@@ -130,21 +148,164 @@ def flash_kernel_with_lse(q, k, v, *, causal: bool, scale: float,
     return out, lse
 
 
+def flash_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, [B, H, T] contiguous, from [B, T, H, D]
+    dO and O (``_flash_bwd`` ``:439``)."""
+    return (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_probs(q, k, v, g, lse, delta, *, scale: float, causal: bool,
+               window: int):
+    """The FA-2 backward's recomputed probabilities and score gradients,
+    dense in f32 over [B, H, T, T] (GQA keys repeated): p = where(valid,
+    exp(z - lse), 0) with z = (q . k) * scale; dz = p * (dp - delta) * scale
+    with dp = dO . v.  Inputs in [B, T, H, D]; also returns q and dO in
+    [B, H, T, D] f32."""
+    qt, gt = (x.transpose(1, 2).float() for x in (q, g))
+    H = qt.shape[1]
+    kt, vt = (_repeat_kv(x.transpose(1, 2), H).float() for x in (k, v))
+    z = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
+    p = torch.exp(z - lse[..., None])
+    mask = _mask(qt.shape[2], causal, window, q.device)
+    if mask is not None:
+        p = torch.where(mask[None, None], p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gt, vt)
+    dz = p * (dp - delta[..., None]) * scale
+    return p, dz, qt, gt, kt
+
+
+def flash_bwd_dq_reference(q, k, v, g, lse, delta, *, causal: bool,
+                           scale: float, window: int) -> torch.Tensor:
+    """Plain version of ``tj_flash_bwd_dq``: dq = dz . k, [B, T, H, D] in
+    q's dtype."""
+    _, dz, _, _, kt = _bwd_probs(q, k, v, g, lse, delta, scale=scale,
+                                 causal=causal, window=window)
+    dq = torch.einsum("bhqk,bhkd->bhqd", dz, kt)
+    return dq.transpose(1, 2).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, g, lse, delta, *, causal: bool,
+                            scale: float, window: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``tj_flash_bwd_dkv``: dk = sum over the GQA group
+    of dz^T . q, dv likewise of p^T . dO; [B, T, Hkv, D] in k's and v's
+    dtypes."""
+    p, dz, qt, gt, _ = _bwd_probs(q, k, v, g, lse, delta, scale=scale,
+                                  causal=causal, window=window)
+    B, T, Hkv, D = k.shape
+    H = q.shape[2]
+
+    def group_sum(x):
+        return x.reshape(B, Hkv, H // Hkv, T, D).sum(2).transpose(1, 2)
+
+    dk = group_sum(torch.einsum("bhqk,bhqd->bhkd", dz, qt))
+    dv = group_sum(torch.einsum("bhqk,bhqd->bhkd", p, gt))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd_args(q, k, v, g, lse, delta) -> None:
+    check_kernel_args(q, k, v)
+    B, T, H, _ = q.shape
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError("flash backward needs dO of q's shape, dtype and "
+                         "device")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.shape != (B, H, T)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"flash backward needs a contiguous float32 "
+                             f"{name} of shape {(B, H, T)} on {q.device}")
+
+
+def flash_bwd_dq_kernel(q, k, v, g, lse, delta, *, causal: bool,
+                        scale: float, window: int) -> torch.Tensor:
+    """Launch ``tj_flash_bwd_dq`` (``csrc/flash_bwd.cu``) on CUDA tensors:
+    dq [B, T, H, D] in q's dtype.  q, k, v and dO are passed by stride."""
+    global bwd_dq_launches
+    _check_bwd_args(q, k, v, g, lse, delta)
+    B, T, H, D = q.shape
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    code = _build.library().tj_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        B, T, H, k.shape[2], D, _build.dtype_code(q),
+        int(causal), int(window), float(scale),
+        *q.stride(), *k.stride(), *v.stride(), *g.stride(), *dq.stride(),
+        _build.stream_of(q))
+    _build.check(code, "flash_attention_bwd_dq")
+    bwd_dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool,
+                         scale: float, window: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``tj_flash_bwd_dkv`` (``csrc/flash_bwd.cu``) on CUDA tensors:
+    (dk, dv) [B, T, Hkv, D] in k's dtype, the GQA group summed inside the
+    kernel."""
+    global bwd_dkv_launches
+    _check_bwd_args(q, k, v, g, lse, delta)
+    B, T, H, D = q.shape
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    code = _build.library().tj_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, T, H, k.shape[2], D, _build.dtype_code(q),
+        int(causal), int(window), float(scale),
+        *q.stride(), *k.stride(), *v.stride(), *g.stride(), *dk.stride(),
+        *dv.stride(), _build.stream_of(q))
+    _build.check(code, "flash_attention_bwd_dkv")
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _flash_forward(q, k, v, causal, scale, window):
+    if q.is_cuda:
+        return flash_kernel_with_lse(q, k, v, causal=causal, scale=scale,
+                                     window=window)
+    return flash_reference_with_lse(q, k, v, causal=causal, scale=scale,
+                                    window=window)
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        out, lse = _flash_forward(q, k, v, causal, scale, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, scale=scale, window=window)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        g = g.to(q.dtype)
+        delta = flash_delta(g, out)
+        if q.is_cuda:
+            dq = flash_bwd_dq_kernel(q, k, v, g, lse, delta, **ctx.opts)
+            dk, dv = flash_bwd_dkv_kernel(q, k, v, g, lse, delta, **ctx.opts)
+        else:
+            dq = flash_bwd_dq_reference(q, k, v, g, lse, delta, **ctx.opts)
+            dk, dv = flash_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                             **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
                              scale: Optional[float] = None, window: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention over [B, T, H, D] -> (out [B, T, H, D] in q's dtype,
     lse [B, H, T] f32).  ``window`` > 0 (causal only) restricts row i to
-    keys (i - window, i]."""
+    keys (i - window, i].  Differentiable in q, k and v (the lse carries
+    no gradient, as in JAX, whose ``_flash`` returns only out).  The
+    autograd Function runs only where a gradient is wanted."""
     scale = _check_common(q, k, v, causal, scale, window)
-    if q.is_cuda:
-        return flash_kernel_with_lse(q, k, v, causal=causal, scale=scale,
-                                     window=int(window))
-    if q.device.type == "cpu":
-        return flash_reference_with_lse(q, k, v, causal=causal, scale=scale,
-                                        window=window)
-    raise ValueError(f"flash attention: no implementation for device "
-                     f"{q.device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention: no implementation for device "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, bool(causal), scale, int(window))
+    return _flash_forward(q, k, v, bool(causal), scale, int(window))
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -1,9 +1,11 @@
 """RMSNorm: the CUDA kernel ``csrc/rmsnorm.cu`` and its plain version.
 
-Port of the JAX package's ``ops/fused.py``.  ``rmsnorm`` dispatches on the
-tensor's device: a CUDA tensor launches the kernel (or raises), a CPU
-tensor takes ``rmsnorm_reference``.  Forward only; a tensor that requires
-grad is refused on the kernel path (training is a later slice).
+Port of the JAX package's ``ops/fused.py``.  ``rmsnorm`` is differentiable
+(``_RMSNorm``, the counterpart of the JAX ``custom_vjp``): its forward
+dispatches on the tensor's device -- a CUDA tensor launches the kernel (or
+raises), a CPU tensor takes ``rmsnorm_reference`` -- and its backward is
+the vjp of the plain version, recomputed from the saved ``(x, scale)`` as
+in JAX (``fused.py:79-82``).
 """
 
 from __future__ import annotations
@@ -42,8 +44,11 @@ def check_kernel_args(x: torch.Tensor, scale: torch.Tensor) -> None:
             or not scale.is_contiguous() or scale.device != x.device):
         raise ValueError(f"rmsnorm kernel needs a contiguous float32 scale "
                          f"of shape ({d},) on {x.device}")
-    if x.requires_grad or scale.requires_grad:
-        raise NotImplementedError("the rmsnorm kernel is forward only")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        # Called bare, the kernel would return a tensor cut off from the
+        # graph; ``rmsnorm`` runs it inside its autograd Function.
+        raise NotImplementedError(
+            "rmsnorm_kernel has no backward of its own; call rmsnorm")
 
 
 def rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor,
@@ -64,11 +69,37 @@ def rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm over the last axis, dtype-preserving."""
+def _rmsnorm_forward(x, scale, eps):
     if x.is_cuda:
         return rmsnorm_kernel(x, scale, eps)
-    if x.device.type == "cpu":
-        return rmsnorm_reference(x, scale, eps)
-    raise ValueError(f"rmsnorm: no implementation for device {x.device}")
+    return rmsnorm_reference(x, scale, eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_()
+            sd = scale.detach().requires_grad_()
+            y = rmsnorm_reference(xd, sd, ctx.eps)
+        dx, dscale = torch.autograd.grad(y, (xd, sd), g)
+        return dx, dscale, None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis; differentiable, dtype-preserving.  The
+    autograd Function runs only where a gradient is wanted: serving calls
+    the forward bare and saves nothing."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"rmsnorm: no implementation for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, float(eps))
+    return _rmsnorm_forward(x, scale, eps)

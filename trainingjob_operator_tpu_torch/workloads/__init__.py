@@ -1,1 +1,1 @@
-"""Serving entry points of the PyTorch port: serve and generate."""
+"""Entry points of the PyTorch port: serve, generate and the trainer."""
