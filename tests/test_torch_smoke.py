@@ -1,11 +1,13 @@
-"""chip_smoke.py's tolerance for the flash backward kernels, on the CPU.
+"""chip_smoke.py's tolerances for the flash kernels, on the CPU.
 
 ``grad_check`` holds a kernel's dQ, dK or dV against the plain backward on
-the card.  Here the plain backward's own bf16 gradients stand in for both
-sides, and a perturbed copy for a faulty kernel: the same f32 sums
-rounded after a little noise pass (some entries one bf16 step away), a
-10% error confined to the last KV tile fails, and so does a 0.4% error
-spread over every entry.  No JAX is imported.
+the card, ``fwd_check`` the forward's output against the plain forward.
+Here the plain versions' own bf16 results stand in for both sides, and a
+perturbed copy for a faulty kernel: the same f32 sums rounded after a
+little noise pass (some entries one bf16 step away), a 10% error confined
+to the last tile (of KV rows for dK/dV, of query rows for the forward)
+fails, and so does an error spread over every entry that stays inside
+the elementwise limit but not the L2 one.  No JAX is imported.
 """
 
 import importlib
@@ -83,4 +85,43 @@ def test_a_small_error_on_every_entry_fails(grads, name):
     check = smoke.grad_check(torch, got, want, "bfloat16")
     assert check["tol_used"] <= 1, check
     assert check["rel_l2_err"] > smoke.BWD_L2_RTOL["bfloat16"]
+    assert not check["ok"]
+
+
+def _plain_out(dtype, T=256):
+    """Forward output [B, T, H, D] of a causal case from bf16 inputs, in
+    ``dtype`` (f32: the plain forward's sums before the final cast)."""
+    g = torch.Generator().manual_seed(2)
+    H, D = 4, 64
+    q, k, v = (torch.randn(1, T, H, D, generator=g).to(torch.bfloat16)
+               .to(dtype) for _ in range(3))
+    out, _ = flash.flash_reference_with_lse(q, k, v, causal=True)
+    return out
+
+
+def test_the_forward_in_another_order_passes():
+    f32 = _plain_out(torch.float32)
+    noise = torch.randn(f32.shape, generator=torch.Generator().manual_seed(3))
+    got = (f32 * (1 + 1e-5 * noise)).to(torch.bfloat16)
+    want = f32.to(torch.bfloat16)
+    assert not torch.equal(got, want)
+    check = smoke.fwd_check(torch, got, want, "bfloat16")
+    assert check["ok"], check
+
+
+def test_a_forward_error_in_the_last_query_rows_fails():
+    want = _plain_out(torch.bfloat16)
+    got = want.clone()
+    got[:, -64:] = (want[:, -64:].float() * 1.1).to(torch.bfloat16)
+    check = smoke.fwd_check(torch, got, want, "bfloat16")
+    assert not check["ok"] and check["tol_used"] > 1, check
+
+
+def test_a_forward_error_just_above_the_l2_limit_fails():
+    want = _plain_out(torch.bfloat16)
+    limit = smoke.FWD_L2_RTOL["bfloat16"]
+    got = want.float() * (1 + 1.25 * limit)
+    check = smoke.fwd_check(torch, got, want, "bfloat16")
+    assert check["tol_used"] <= 1, check
+    assert limit < check["rel_l2_err"] < 1.5 * limit
     assert not check["ok"]
