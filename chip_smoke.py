@@ -35,17 +35,21 @@ script exits non-zero):
 5. serve_7b: DecodeService on a seeded random-init Llama-2-7B (bf16, all 32
    layers); zero stale-KV violations, every request finished, and RMSNorm
    launched 65 times per decode step and per prefill chunk.
-6. generate_7b: a 512-token prompt and 32 greedy steps; the flash kernel is
-   launched once per layer by the prefill.
+6. generate_7b: a 512-token prompt and 32 greedy steps; the tensor-core
+   flash forward is launched once per layer by the prefill.
 7. train_7b_width: the trainer's step (``llama_elastic.make_step_fn``) at
    Llama-2-7B widths, 8 of its 32 layers (f32 masters and AdamW state for
    all 32 need about 108 GB), bf16 compute, seq 4096, global batch 2 with
    accum 2, remat "none": 8 steps on one repeated batch; losses finite
    and the last below the first; per step 16 launches each of the flash
-   forward, dQ and dK/dV and 34 of RMSNorm (the formula of phase 4).
+   forward, dQ and dK/dV and 34 of RMSNorm (the formula of phase 4), every
+   flash forward and dK/dV launch on the tensor-core kernels.
 
-Then the ``kernels`` line (launch counts from phases 5, 6 and 7, the main
-paths) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
+Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, the
+tensor-core (wgmma) and f32-FMA flash forwards, dQ, and the tensor-core
+and f32-FMA dK/dV, with their launches on the paths driven (the 7B phases
+5-7 run the bf16 tensor-core kernels, the tiny fp32 phases 3-4 the f32-FMA
+ones) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when CUDA is unavailable or the package is not
 beside this script.
 """
@@ -75,17 +79,43 @@ OUT_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
 #: step apart (at most 2^-7 relative), and the atol covers only entries
 #: near 0.  An output entry is about sqrt(e / n) for n visible keys (0.026
 #: at n = 4096), so an absolute 2e-2 would let a wrong late query tile pass.
-FWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4)}
-FWD_L2_RTOL = {"bfloat16": 1e-3, "float32": 1e-5}
+#:
+#: The tensor-core kernels ("bfloat16_wgmma": csrc/flash_fwd_wgmma.cu,
+#: csrc/flash_bwd_dkv_wgmma.cu) also round P (forward; P and dz in dK/dV)
+#: to bf16 before the products that take it, as FlashAttention-2/3 and
+#: SDPA's flash kernels do.  Rounding to nearest bf16 leaves a relative
+#: error uniform within half a step, 2^-8 .. 2^-9 of the value: over
+#: mantissas spread evenly in log, an RMS of 2^-7 sqrt(0.541 / 12) = 1.7e-3.
+#: Each output entry sums many such rounded terms with random signs, so it
+#: carries an absolute error of about 1.7e-3 x the RMS of its row (the row's
+#: scale, not the tensor's: under a causal mask an early row of O or a
+#: first KV row of dK/dV is far above the tensor's RMS).  Hence:
+#: - atol = 2e-2 x the RMS of each row (over D): the largest of 2^24
+#:   Gaussian errors is about 5.8 sigma = 1e-2 x the row's RMS, doubled;
+#: - rtol stays 1e-2: the final cast may still put the two one bf16 step
+#:   apart;
+#: - relative L2 5e-3: the 1.7e-3 of P's rounding and up to 1.7e-3 more
+#:   from the two final casts, sqrt(2) x 1.7e-3 = 2.4e-3, doubled.
+#: dQ (csrc/flash_bwd.cu, f32 products) keeps BWD_TOL["bfloat16"].
+FWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4),
+           "bfloat16_wgmma": (1e-2, 2e-2)}
+FWD_L2_RTOL = {"bfloat16": 1e-3, "float32": 1e-5, "bfloat16_wgmma": 5e-3}
 LSE_ATOL = {"bfloat16": 1e-3, "float32": 1e-4}
+#: Limits whose atol is a fraction of each row's RMS, not the tensor's.
+ROW_ATOL = ("bfloat16_wgmma",)
 #: (rtol, atol as a fraction of the reference's RMS) of the flash backward
 #: kernels against the plain backward.  Both round f32 sums of the same
 #: products, in another order, to the input dtype, so under bf16 they may
 #: sit one bf16 step apart (at most 2^-7 relative); the atol only covers
 #: entries near 0.  Beside it the whole tensor's relative L2 error is held
 #: to BWD_L2_RTOL.
-BWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4)}
-BWD_L2_RTOL = {"bfloat16": 1e-3, "float32": 1e-5}
+#: The tensor-core dK/dV kernel ("bfloat16_wgmma") rounds p and dz to bf16
+#: before p^T . dO and dz^T . q: FWD_TOL's reasoning gives it the same
+#: limits as the tensor-core forward.
+BWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4),
+           "bfloat16_wgmma": FWD_TOL["bfloat16_wgmma"]}
+BWD_L2_RTOL = {"bfloat16": 1e-3, "float32": 1e-5,
+               "bfloat16_wgmma": FWD_L2_RTOL["bfloat16_wgmma"]}
 
 
 def emit(obj) -> None:
@@ -208,13 +238,40 @@ FLASH_CASES = [
     (1, 1000, 32, 32, 16, True, 0, "float32"),
     # The training path's microbatch (train_7b_width).
     (1, 4096, 32, 32, 128, True, 0, "bfloat16"),
+    # base_124m's head dim.
+    (4, 1024, 12, 12, 64, True, 0, "bfloat16"),
 ]
 #: FLASH_CASES entry of the training path's attention shape.
 TRAIN_FLASH_CASE = 6
 
 
+#: FLASH_CASES entry that exercises the f32-FMA kernels.
+FMA_FLASH_CASE = 5
+
+
 def flash_iters(T: int) -> int:
     return 5 if T >= 4096 else 20 if T >= 1000 else 50
+
+
+def rates(ops: float, ms: float, bound_ms: float) -> dict:
+    """Achieved TFLOP/s and the share of the bound a kernel time reaches."""
+    return {"tflops": ops / ms / 1e9, "bound_share": bound_ms / ms}
+
+
+def launched(torch, fn, key: str, kernel: str):
+    """Run ``fn`` once from zeroed counters; raise unless it launched the
+    kernel ``key`` once, on the tensor-core route where ``kernel`` is
+    "wgmma"."""
+    from trainingjob_operator_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    result = fn()
+    counts = ops.launch_counts()
+    tc = counts.get(f"{key}_wgmma", 0)
+    if counts[key] != 1 or tc != (kernel == "wgmma"):
+        raise AssertionError(f"{key}: launches {counts}, expected one "
+                             f"{kernel} launch")
+    return result
 
 
 def check_flash(torch, F, flash):
@@ -227,12 +284,14 @@ def check_flash(torch, F, flash):
         k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype)
         v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype)
         scale = D ** -0.5
-        out, lse = flash.flash_kernel_with_lse(q, k, v, causal=causal,
-                                               scale=scale, window=window)
+        kernel = flash.fwd_plan(q, k, v)["kernel"]
+        out, lse = launched(torch, lambda: flash.flash_kernel_with_lse(
+            q, k, v, causal=causal, scale=scale, window=window),
+            "flash_attention_fwd", kernel)
         want, want_lse = flash.flash_reference_with_lse(
             q, k, v, causal=causal, scale=scale, window=window)
         torch.cuda.synchronize()
-        out_err = fwd_check(torch, out, want, dname)
+        out_err = fwd_check(torch, out, want, limits(dname, kernel))
         lse_err = float((lse - want_lse).abs().max())
         tag = f"flash B={B} T={T} H={H}/{Hkv} D={D} w={window} {dname}"
         if not out_err["ok"]:
@@ -250,13 +309,14 @@ def check_flash(torch, F, flash):
             + B * H * T * 4
         ops = 4 * B * H * D * visible_pairs(T, causal, window)
         t_bound, by = bound(bytes_moved, ops, dname)
+        ms = time_ms(lambda: flash.flash_kernel_with_lse(
+            q, k, v, causal=causal, scale=scale, window=window), iters)
         cases.append({
             "B": B, "T": T, "Hq": H, "Hkv": Hkv, "D": D, "causal": causal,
-            "window": window, "dtype": dname,
+            "window": window, "dtype": dname, "kernel": kernel,
             "max_abs_err": out_err["max_abs_err"], "out": out_err,
             "lse_max_abs_err": lse_err, "lse_atol": LSE_ATOL[dname],
-            "ms": time_ms(lambda: flash.flash_kernel_with_lse(
-                q, k, v, causal=causal, scale=scale, window=window), iters),
+            "ms": ms, **rates(ops, ms, t_bound),
             "eager_ms": eager_ms(lambda: flash.flash_kernel_with_lse(
                 q, k, v, causal=causal, scale=scale, window=window), iters),
             "plain_ms": time_ms(lambda: flash.flash_reference_with_lse(
@@ -285,33 +345,47 @@ def sdpa_fn(torch, F, T, H, Hkv, causal, window, scale):
     return sdpa
 
 
-def grad_check(torch, got, want, dname) -> dict:
+def limits(dname: str, kernel: str) -> str:
+    """Key of the tolerance tables for a kernel route (``fwd_plan`` /
+    ``dkv_plan``'s "fma" or "wgmma") and dtype."""
+    return f"{dname}_wgmma" if kernel == "wgmma" else dname
+
+
+def grad_check(torch, got, want, key) -> dict:
     """How far a backward kernel's gradient lies from the plain one, at
     BWD_TOL and BWD_L2_RTOL; ``tol_used`` > 1 or ``ok`` false fails."""
-    return close_check(torch, got, want, *BWD_TOL[dname], BWD_L2_RTOL[dname])
+    return close_check(torch, got, want, *BWD_TOL[key], BWD_L2_RTOL[key],
+                       per_row=key in ROW_ATOL)
 
 
-def fwd_check(torch, got, want, dname) -> dict:
+def fwd_check(torch, got, want, key) -> dict:
     """How far the flash forward's output lies from the plain one, at
     FWD_TOL and FWD_L2_RTOL (as ``grad_check``)."""
-    return close_check(torch, got, want, *FWD_TOL[dname], FWD_L2_RTOL[dname])
+    return close_check(torch, got, want, *FWD_TOL[key], FWD_L2_RTOL[key],
+                       per_row=key in ROW_ATOL)
 
 
-def close_check(torch, got, want, rtol, atol_rms, l2_rtol) -> dict:
+def close_check(torch, got, want, rtol, atol_rms, l2_rtol,
+                per_row: bool = False) -> dict:
     """|got - want| <= atol + rtol |want| elementwise, with atol =
-    ``atol_rms`` x the RMS of ``want``, and the relative L2 error at most
-    ``l2_rtol``.  Reports max|want|, the RMS, the share of the elementwise
-    tolerance used and the L2 error; ``ok`` is the verdict."""
+    ``atol_rms`` x the RMS of ``want`` (of each row over the last dim where
+    ``per_row``), and the relative L2 error at most ``l2_rtol``.  Reports
+    max|want|, the RMS, the share of the elementwise tolerance used and the
+    L2 error; ``ok`` is the verdict."""
     g, w = got.float(), want.float()
     rms = float(w.square().mean().sqrt())
-    atol = atol_rms * rms
+    scale = w.square().mean(-1, keepdim=True).sqrt() if per_row else rms
+    atol = atol_rms * scale
     diff = (g - w).abs()
     rel_l2 = float((g - w).norm() / w.norm())
-    tol_used = float((diff / (atol + rtol * w.abs())).max())
+    # Where want is exactly 0 in a row of zeros, only an exact 0 passes.
+    tol_used = float((diff / (atol + rtol * w.abs()).clamp_min(1e-30)).max())
     return {"max_abs_err": float(diff.max()),
             "want_max_abs": float(w.abs().max()), "want_rms": rms,
-            "rtol": rtol, "atol": atol, "tol_used": tol_used,
-            "rel_l2_err": rel_l2, "rel_l2_rtol": l2_rtol,
+            "rtol": rtol, "atol_rms": atol_rms,
+            "atol_rms_of": "row" if per_row else "tensor",
+            "tol_used": tol_used, "rel_l2_err": rel_l2,
+            "rel_l2_rtol": l2_rtol,
             "ok": bool(torch.isfinite(g).all()) and tol_used <= 1.0
             and rel_l2 <= l2_rtol}
 
@@ -339,8 +413,12 @@ def check_flash_bwd(torch, F, flash):
         out, lse = flash.flash_kernel_with_lse(q, k, v, **opts)
         delta = flash.flash_delta(do, out)
         args = (q, k, v, do, lse, delta)
-        dq = flash.flash_bwd_dq_kernel(*args, **opts)
-        dk, dv = flash.flash_bwd_dkv_kernel(*args, **opts)
+        kernel = flash.dkv_plan(q, k, v, do)["kernel"]
+        dq = launched(torch, lambda: flash.flash_bwd_dq_kernel(*args, **opts),
+                      "flash_attention_bwd_dq", "fma")
+        dk, dv = launched(
+            torch, lambda: flash.flash_bwd_dkv_kernel(*args, **opts),
+            "flash_attention_bwd_dkv", kernel)
         want_dq = flash.flash_bwd_dq_reference(*args, **opts)
         want_dk, want_dv = flash.flash_bwd_dkv_reference(*args, **opts)
         deterministic_dq = torch.equal(
@@ -350,9 +428,11 @@ def check_flash_bwd(torch, F, flash):
         torch.cuda.synchronize()
         tag = f"flash bwd B={B} T={T} H={H}/{Hkv} D={D} w={window} {dname}"
         errs = {}
-        for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
-                                ("dv", dv, want_dv)):
-            errs[name] = grad_check(torch, got, want, dname)
+        for name, got, want, key in (
+                ("dq", dq, want_dq, dname),
+                ("dk", dk, want_dk, limits(dname, kernel)),
+                ("dv", dv, want_dv, limits(dname, kernel))):
+            errs[name] = grad_check(torch, got, want, key)
             if not errs[name]["ok"]:
                 raise AssertionError(f"{tag}: {name} {errs[name]}")
         if not (deterministic_dq and deterministic_dkv):
@@ -378,11 +458,11 @@ def check_flash_bwd(torch, F, flash):
                   "deterministic": True, "library_ms": library_ms}
         t_bound, by = bound(3 * q_bytes + 2 * kv_bytes + stat_bytes,
                             6 * D * pairs, dname)
+        ms = time_ms(lambda: flash.flash_bwd_dq_kernel(*args, **opts), iters)
         dq_cases.append({
-            **common, "max_abs_err": errs["dq"]["max_abs_err"],
-            "dq": errs["dq"],
-            "ms": time_ms(lambda: flash.flash_bwd_dq_kernel(*args, **opts),
-                          iters),
+            **common, "kernel": "fma",
+            "max_abs_err": errs["dq"]["max_abs_err"], "dq": errs["dq"],
+            "ms": ms, **rates(6 * D * pairs, ms, t_bound),
             "eager_ms": eager_ms(
                 lambda: flash.flash_bwd_dq_kernel(*args, **opts), iters),
             "plain_ms": time_ms(
@@ -390,12 +470,14 @@ def check_flash_bwd(torch, F, flash):
             "bound_ms": t_bound, "bound_by": by})
         t_bound, by = bound(2 * q_bytes + 4 * kv_bytes + stat_bytes,
                             8 * D * pairs, dname)
+        ms = time_ms(lambda: flash.flash_bwd_dkv_kernel(*args, **opts),
+                     iters)
         dkv_cases.append({
-            **common, "max_abs_err": max(errs["dk"]["max_abs_err"],
-                                         errs["dv"]["max_abs_err"]),
+            **common, "kernel": kernel,
+            "max_abs_err": max(errs["dk"]["max_abs_err"],
+                               errs["dv"]["max_abs_err"]),
             "dk": errs["dk"], "dv": errs["dv"],
-            "ms": time_ms(lambda: flash.flash_bwd_dkv_kernel(*args, **opts),
-                          iters),
+            "ms": ms, **rates(8 * D * pairs, ms, t_bound),
             "eager_ms": eager_ms(
                 lambda: flash.flash_bwd_dkv_kernel(*args, **opts), iters),
             "plain_ms": time_ms(
@@ -407,14 +489,20 @@ def check_flash_bwd(torch, F, flash):
     return dq_cases, dkv_cases
 
 
-def train_launches(L: int, remat: str, micro_steps: int):
+def train_launches(L: int, remat: str, micro_steps: int,
+                   tensor_cores: bool = False):
     """Kernel launches of ``micro_steps`` microbatch steps of an L-layer
-    model (phase 4's formula)."""
+    model (phase 4's formula); with ``tensor_cores`` (bf16 at head dim 64
+    or 128) every flash forward and dK/dV launch is a tensor-core one."""
     full = remat == "full"
+    fwd = micro_steps * (2 if full else 1) * L
     return {"rmsnorm_fwd": micro_steps * ((4 if full else 2) * L + 1),
-            "flash_attention_fwd": micro_steps * (2 if full else 1) * L,
+            "flash_attention_fwd": fwd,
             "flash_attention_bwd_dq": micro_steps * L,
-            "flash_attention_bwd_dkv": micro_steps * L}
+            "flash_attention_bwd_dkv": micro_steps * L,
+            "flash_attention_fwd_wgmma": fwd if tensor_cores else 0,
+            "flash_attention_bwd_dkv_wgmma":
+                micro_steps * L if tensor_cores else 0}
 
 
 def tiny_train_equivalence(torch, llama, llama_elastic, train):
@@ -504,7 +592,7 @@ def train_7b_width(torch, llama, llama_elastic):
         step_s.append(time.perf_counter() - t)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    per_step = train_launches(cfg.n_layers, remat, accum)
+    per_step = train_launches(cfg.n_layers, remat, accum, tensor_cores=True)
     if counts != {k: n * steps for k, n in per_step.items()}:
         raise AssertionError(f"7B-width train: launches {counts}, expected "
                              f"{per_step} per step x {steps}")
@@ -666,9 +754,11 @@ def generate_7b(torch, decode, params, cfg):
     ops.reset_launch_counts()
     tokens, total_s = timed(steps)
     counts = ops.launch_counts()
-    if counts["flash_attention_fwd"] != cfg.n_layers:
-        raise AssertionError(f"7B generate: {counts['flash_attention_fwd']} "
-                             f"flash launches, expected {cfg.n_layers}")
+    if not (counts["flash_attention_fwd"]
+            == counts["flash_attention_fwd_wgmma"] == cfg.n_layers):
+        raise AssertionError(f"7B generate: flash launches {counts}, "
+                             f"expected {cfg.n_layers}, all on the tensor "
+                             f"cores")
     if counts["rmsnorm_fwd"] != (2 * cfg.n_layers + 1) * steps:
         raise AssertionError(f"7B generate: {counts['rmsnorm_fwd']} rmsnorm "
                              f"launches")
@@ -741,7 +831,7 @@ def main() -> int:
     ptxas = [line.strip() for line in
              (_build.BUILD_DIR / f"{_build.source_tag()}.log").read_text()
              .splitlines() if "registers" in line or "Compiling entry" in
-             line]
+             line or "spill" in line]
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
@@ -755,10 +845,10 @@ def main() -> int:
           "flash_attention_bwd_dq": dq_cases,
           "flash_attention_bwd_dkv": dkv_cases})
 
-    emit({"phase": "tiny_equivalence",
-          **tiny_equivalence(torch, llama, decode, serve)})
-    emit({"phase": "tiny_train_equivalence",
-          **tiny_train_equivalence(torch, llama, llama_elastic, train)})
+    tiny = tiny_equivalence(torch, llama, decode, serve)
+    emit({"phase": "tiny_equivalence", **tiny})
+    tiny_train = tiny_train_equivalence(torch, llama, llama_elastic, train)
+    emit({"phase": "tiny_train_equivalence", **tiny_train})
 
     cfg = llama.LlamaConfig.llama2_7b()
     t0 = time.perf_counter()
@@ -778,28 +868,45 @@ def main() -> int:
     emit({"phase": "train_7b_width", "device": name, "nvidia_smi": smi,
           **trained})
 
-    launches = {k: served["launches"][k] + generated["launches"][k]
-                + trained["launches"][k] for k in ops.launch_counts()}
+    # Launches on every path driven (each from zeroed counters): the 7B
+    # paths run the bf16 tensor-core kernels, the tiny fp32 ones the
+    # f32-FMA kernels.
+    paths = [served, generated, trained, tiny, tiny_train["none"],
+             tiny_train["full"]]
+    launches = {k: sum(p["launches"][k] for p in paths)
+                for k in ops.launch_counts()}
+    fma_fwd = launches["flash_attention_fwd"] \
+        - launches["flash_attention_fwd_wgmma"]
+    fma_dkv = launches["flash_attention_bwd_dkv"] \
+        - launches["flash_attention_bwd_dkv_wgmma"]
+    src = "trainingjob_operator_tpu_torch/csrc/"
+    tpu = "trainingjob_operator_tpu/ops/"
+
+    def of(cases, kernel):
+        return [c for c in cases if c["kernel"] == kernel]
     emit({"kernels": [
-        summary("rmsnorm_fwd", "cuda",
-                "trainingjob_operator_tpu_torch/csrc/rmsnorm.cu",
-                "trainingjob_operator_tpu/ops/fused.py:18", rms_cases,
-                rms_cases[0], launches["rmsnorm_fwd"]),
-        summary("flash_attention_fwd", "cuda",
-                "trainingjob_operator_tpu_torch/csrc/flash_fwd.cu",
-                "trainingjob_operator_tpu/ops/flash_attention.py:40",
-                flash_cases, flash_cases[0],
-                launches["flash_attention_fwd"]),
-        summary("flash_attention_bwd_dq", "cuda",
-                "trainingjob_operator_tpu_torch/csrc/flash_bwd.cu",
-                "trainingjob_operator_tpu/ops/flash_attention.py:170",
-                dq_cases, dq_cases[TRAIN_FLASH_CASE],
+        summary("rmsnorm_fwd", "cuda", src + "rmsnorm.cu",
+                tpu + "fused.py:18", rms_cases, rms_cases[0],
+                launches["rmsnorm_fwd"]),
+        summary("flash_attention_fwd_wgmma", "cuda",
+                src + "flash_fwd_wgmma.cu", tpu + "flash_attention.py:40",
+                of(flash_cases, "wgmma"), flash_cases[TRAIN_FLASH_CASE],
+                launches["flash_attention_fwd_wgmma"]),
+        summary("flash_attention_fwd_fma", "cuda", src + "flash_fwd.cu",
+                tpu + "flash_attention.py:40", of(flash_cases, "fma"),
+                flash_cases[FMA_FLASH_CASE], fma_fwd),
+        summary("flash_attention_bwd_dq", "cuda", src + "flash_bwd.cu",
+                tpu + "flash_attention.py:170", dq_cases,
+                dq_cases[TRAIN_FLASH_CASE],
                 launches["flash_attention_bwd_dq"]),
-        summary("flash_attention_bwd_dkv", "cuda",
-                "trainingjob_operator_tpu_torch/csrc/flash_bwd.cu",
-                "trainingjob_operator_tpu/ops/flash_attention.py:219",
-                dkv_cases, dkv_cases[TRAIN_FLASH_CASE],
-                launches["flash_attention_bwd_dkv"]),
+        summary("flash_attention_bwd_dkv_wgmma", "cuda",
+                src + "flash_bwd_dkv_wgmma.cu",
+                tpu + "flash_attention.py:219", of(dkv_cases, "wgmma"),
+                dkv_cases[TRAIN_FLASH_CASE],
+                launches["flash_attention_bwd_dkv_wgmma"]),
+        summary("flash_attention_bwd_dkv_fma", "cuda", src + "flash_bwd.cu",
+                tpu + "flash_attention.py:219", of(dkv_cases, "fma"),
+                dkv_cases[FMA_FLASH_CASE], fma_dkv),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

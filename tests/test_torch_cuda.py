@@ -74,14 +74,35 @@ def test_rmsnorm_kernel_matches_plain(dev, dtype, rows, d):
                                atol=atol)
 
 
-@pytest.mark.parametrize("causal,H,Hkv,T,D,window,dtype", [
+def _limits(dtype, head_dim):
+    """chip_smoke's tolerance key for the kernel a call takes."""
+    return smoke.limits(str(dtype).split(".")[-1],
+                        flash.kernel_route(dtype, head_dim))
+
+
+#: (causal, H, Hkv, T, D, window, dtype): f32 and bf16 at head dims 16 and
+#: 32 reach the f32-FMA kernels, bf16 at 64 and 128 the tensor-core ones
+#: (ragged T 130, 200 and 1000; GQA 32/8; windows 16 and 256; non-causal).
+FLASH_CASES = [
     (True, 4, 4, 64, 16, 0, torch.float32),
     (False, 4, 2, 48, 16, 0, torch.float32),
     (True, 4, 2, 48, 32, 8, torch.float32),
     (True, 4, 2, 130, 64, 0, torch.bfloat16),
     (True, 8, 8, 200, 128, 16, torch.bfloat16),
     (False, 4, 1, 70, 128, 0, torch.bfloat16),
-])
+    (True, 4, 4, 100, 16, 0, torch.bfloat16),
+    (True, 4, 2, 100, 32, 8, torch.bfloat16),
+    (True, 4, 4, 1000, 64, 0, torch.bfloat16),
+    (True, 32, 8, 1000, 128, 0, torch.bfloat16),
+    (True, 4, 2, 1000, 128, 256, torch.bfloat16),
+    (True, 4, 4, 130, 128, 16, torch.bfloat16),
+    (False, 4, 4, 200, 64, 0, torch.bfloat16),
+    (False, 32, 8, 130, 128, 0, torch.bfloat16),
+    (True, 4, 4, 256, 128, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("causal,H,Hkv,T,D,window,dtype", FLASH_CASES)
 def test_flash_kernel_matches_plain(dev, causal, H, Hkv, T, D, window,
                                     dtype):
     g = torch.Generator(device=dev).manual_seed(1)
@@ -91,12 +112,40 @@ def test_flash_kernel_matches_plain(dev, causal, H, Hkv, T, D, window,
     ops.reset_launch_counts()
     out, lse = flash.flash_attention_with_lse(q, k, v, causal=causal,
                                               window=window)
-    assert ops.launch_counts()["flash_attention_fwd"] == 1
+    counts = ops.launch_counts()
+    assert counts["flash_attention_fwd"] == 1
+    tc = flash.kernel_route(dtype, D) == "wgmma"
+    assert counts["flash_attention_fwd_wgmma"] == int(tc)
     want, want_lse = flash.flash_reference_with_lse(q, k, v, causal=causal,
                                                     window=window)
-    check = smoke.fwd_check(torch, out, want, str(dtype).split(".")[-1])
+    check = smoke.fwd_check(torch, out, want, _limits(dtype, D))
     assert check["ok"], check
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+
+
+def test_tensor_core_kernels_read_a_bhtd_view_in_place(dev):
+    # bf16 [B, H, T, D] storage viewed as [B, T, H, D]: the tensor maps take
+    # its strides, so no copy is made, and both kernels are right.
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, do = (torch.randn(2, 4, 130, 128, generator=g, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+    assert not any(flash.dkv_plan(q, k, v, do)["copies"].values())
+    opts = dict(causal=True, scale=128 ** -0.5, window=0)
+    ops.reset_launch_counts()
+    out, lse = flash.flash_kernel_with_lse(q, k, v, **opts)
+    delta = flash.flash_delta(do, out)
+    dk, dv = flash.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **opts)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_fwd_wgmma"] == 1
+    assert counts["flash_attention_bwd_dkv_wgmma"] == 1
+    want, _ = flash.flash_reference_with_lse(q, k, v, **opts)
+    check = smoke.fwd_check(torch, out, want, "bfloat16_wgmma")
+    assert check["ok"], check
+    want_dk, want_dv = flash.flash_bwd_dkv_reference(q, k, v, do, lse,
+                                                     delta, **opts)
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        check = smoke.grad_check(torch, got, want, "bfloat16_wgmma")
+        assert check["ok"], check
 
 
 def test_flash_kernel_takes_strided_inputs(dev):
@@ -132,6 +181,12 @@ def test_kernels_refuse_grad(dev):
     (True, 4, 2, 130, 64, 0, torch.bfloat16),
     (True, 8, 8, 200, 128, 16, torch.bfloat16),
     (False, 4, 1, 70, 128, 0, torch.bfloat16),
+    (True, 4, 4, 100, 32, 0, torch.bfloat16),
+    (True, 4, 4, 1000, 64, 0, torch.bfloat16),
+    (True, 32, 8, 1000, 128, 0, torch.bfloat16),
+    (True, 4, 2, 1000, 128, 256, torch.bfloat16),
+    (False, 4, 4, 200, 64, 0, torch.bfloat16),
+    (True, 4, 4, 256, 128, 0, torch.bfloat16),
 ])
 def test_flash_backward_kernels_match_plain(dev, causal, H, Hkv, T, D,
                                             window, dtype):
@@ -149,15 +204,22 @@ def test_flash_backward_kernels_match_plain(dev, causal, H, Hkv, T, D,
     counts = ops.launch_counts()
     assert counts["flash_attention_bwd_dq"] == 1
     assert counts["flash_attention_bwd_dkv"] == 1
+    tc = flash.kernel_route(dtype, D) == "wgmma"
+    assert counts["flash_attention_bwd_dkv_wgmma"] == int(tc)
     want_dq = flash.flash_bwd_dq_reference(q, k, v, do, lse, delta, **opts)
     want_dk, want_dv = flash.flash_bwd_dkv_reference(q, k, v, do, lse,
                                                      delta, **opts)
     rtol, atol_rms = BWD_TOL[dtype]
-    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+    want_dq = want_dq.float()
+    atol = atol_rms * float(want_dq.square().mean().sqrt())
+    assert dq.dtype == dtype and dq.shape == want_dq.shape
+    torch.testing.assert_close(dq.float(), want_dq, rtol=rtol, atol=atol)
+    # dK/dV as chip_smoke holds them: the tensor-core kernel rounds p and
+    # dz to bf16 before its products (BWD_TOL["bfloat16_wgmma"]).
+    for got, want in ((dk, want_dk), (dv, want_dv)):
         assert got.dtype == dtype and got.shape == want.shape
-        want = want.float()
-        atol = atol_rms * float(want.square().mean().sqrt())
-        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+        check = smoke.grad_check(torch, got, want, _limits(dtype, D))
+        assert check["ok"], check
     # No atomics: a second run is bit for bit the first.
     assert torch.equal(dq, flash.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
                                                      **opts))
@@ -206,7 +268,9 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
     assert counts == {"rmsnorm_fwd": 3 * 2 * (2 * L + 1),
                       "flash_attention_fwd": 3 * 2 * L,
                       "flash_attention_bwd_dq": 3 * 2 * L,
-                      "flash_attention_bwd_dkv": 3 * 2 * L}
+                      "flash_attention_bwd_dkv": 3 * 2 * L,
+                      "flash_attention_fwd_wgmma": 0,
+                      "flash_attention_bwd_dkv_wgmma": 0}
     torch.testing.assert_close(losses["cuda"], losses["cpu"], rtol=1e-4,
                                atol=0)
 

@@ -125,3 +125,105 @@ def test_a_forward_error_just_above_the_l2_limit_fails():
     assert check["tol_used"] <= 1, check
     assert limit < check["rel_l2_err"] < 1.5 * limit
     assert not check["ok"]
+
+
+# The tensor-core kernels round P (forward) and P and dz (dK/dV) to bf16
+# before the products that take them.  A plain emulation of those rounding
+# points stands in for a correct kernel: it must pass the limits
+# chip_smoke.py derives for them ("bfloat16_wgmma"), and the same faults as
+# above must still fail them.
+
+def _inputs(T, H=2, Hkv=2, D=64, seed=4):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(1, T, h, D, generator=g).to(torch.bfloat16)
+                 for h in (H, Hkv, Hkv, H))
+
+
+def _emulate_fwd(q, k, v):
+    """The causal forward with P rounded to bf16 before P . V, l summed
+    over the f32 P, O rounded once to bf16."""
+    scale = q.shape[-1] ** -0.5
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    s = flash._scores(qt, kt, scale=scale, causal=True)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.where(flash._mask(s.shape[-1], True, 0, s.device), p, 0.0)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+                     flash._repeat_kv(vt, q.shape[2]).float()) / l
+    return o.transpose(1, 2).to(torch.bfloat16)
+
+
+def _emulate_dkv(q, k, v, do, lse, delta):
+    """dK/dV with p and dz rounded to bf16 before their products."""
+    opts = dict(scale=q.shape[-1] ** -0.5, causal=True, window=0)
+    p, dz, qt, gt, _ = flash._bwd_probs(q, k, v, do, lse, delta, **opts)
+    B, T, Hkv, D = k.shape
+    group = q.shape[2] // Hkv
+
+    def summed(a, x):
+        y = torch.einsum("bhqk,bhqd->bhkd", a.to(torch.bfloat16).float(), x)
+        return y.reshape(B, Hkv, group, T, D).sum(2).transpose(1, 2)
+    return summed(dz, qt).to(k.dtype), summed(p, gt).to(v.dtype)
+
+
+@pytest.fixture(scope="module", params=[256, 2048])
+def tc_case(request):
+    """Plain and emulated results of one causal bf16 case (GQA 4/2)."""
+    q, k, v, do = _inputs(request.param, H=4, Hkv=2)
+    opts = dict(causal=True, scale=q.shape[-1] ** -0.5, window=0)
+    out, lse = flash.flash_reference_with_lse(q, k, v, **opts)
+    delta = flash.flash_delta(do, out)
+    dk, dv = flash.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **opts)
+    edk, edv = _emulate_dkv(q, k, v, do, lse, delta)
+    return {"out": (_emulate_fwd(q, k, v), out), "dk": (edk, dk),
+            "dv": (edv, dv)}
+
+
+def test_the_forward_rounding_emulation_passes_the_tensor_core_limits(
+        tc_case):
+    got, want = tc_case["out"]
+    assert not torch.equal(got, want)
+    check = smoke.fwd_check(torch, got, want, "bfloat16_wgmma")
+    assert check["ok"], check
+    # The bf16 P is what the FMA kernels' tighter limits would refuse.
+    assert not smoke.fwd_check(torch, got, want, "bfloat16")["ok"]
+
+
+@pytest.mark.parametrize("name", ["dk", "dv"])
+def test_the_dkv_rounding_emulation_passes_the_tensor_core_limits(
+        tc_case, name):
+    got, want = tc_case[name]
+    check = smoke.grad_check(torch, got, want, "bfloat16_wgmma")
+    assert check["ok"], check
+
+
+@pytest.mark.parametrize("name", ["dk", "dv"])
+def test_an_error_in_the_late_kv_tiles_fails_the_tensor_core_limits(
+        tc_case, name):
+    _, want = tc_case[name]
+    got = want.clone()
+    got[:, -64:] = (want[:, -64:].float() * 1.1).to(torch.bfloat16)
+    check = smoke.grad_check(torch, got, want, "bfloat16_wgmma")
+    assert not check["ok"] and check["tol_used"] > 1, check
+
+
+def test_a_forward_error_in_the_last_query_rows_fails_the_tensor_core_limits(
+        tc_case):
+    _, want = tc_case["out"]
+    got = want.clone()
+    got[:, -64:] = (want[:, -64:].float() * 1.1).to(torch.bfloat16)
+    check = smoke.fwd_check(torch, got, want, "bfloat16_wgmma")
+    assert not check["ok"] and check["tol_used"] > 1, check
+
+
+@pytest.mark.parametrize("name", ["out", "dk", "dv"])
+def test_an_error_just_above_the_tensor_core_l2_limit_fails(tc_case, name):
+    _, want = tc_case[name]
+    limit = smoke.FWD_L2_RTOL["bfloat16_wgmma"]
+    assert limit == smoke.BWD_L2_RTOL["bfloat16_wgmma"]
+    got = want.float() * (1 + 1.25 * limit)
+    check = smoke.close_check(torch, got, want, *smoke.FWD_TOL[
+        "bfloat16_wgmma"], limit, per_row=True)
+    assert check["tol_used"] <= 1, check
+    assert limit < check["rel_l2_err"] < 1.5 * limit
+    assert not check["ok"]

@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_G = ctypes.POINTER(ctypes.c_longlong)
 
 #: C signatures of the entry points (csrc/*.cu ``extern "C"``).
 SIGNATURES = {
@@ -49,6 +50,16 @@ SIGNATURES = {
     "tj_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F] + [_L] * 20 + [_P],
     # as tj_flash_bwd_dq with dk, dv for dq and the strides of both
     "tj_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F] + [_L] * 24 + [_P],
+    # q, k, v, o, lse, B, T, Hq, Hkv, D, causal, window, scale, the tensor-map
+    # geometry of q, k and v (``geometry``), the (b, t, h, d) strides of o,
+    # then the stream
+    "tj_flash_fwd_wgmma": [_P] * 5 + [_I] * 7 + [_F] + [_G] * 3 + [_L] * 4
+    + [_P],
+    # q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv, D, causal, window,
+    # scale, the geometry of q, k, v and dout, the strides of dk and dv,
+    # then the stream
+    "tj_flash_bwd_dkv_wgmma": [_P] * 8 + [_I] * 7 + [_F] + [_G] * 4
+    + [_L] * 8 + [_P],
 }
 
 #: dtype codes the C entry points take (csrc/common.cuh kF32, kBF16).
@@ -139,6 +150,14 @@ def check(code: int, kernel: str) -> None:
 def dtype_code(t) -> int:
     """The C entry points' code for ``t``'s dtype (float32 or bfloat16)."""
     return DTYPE_CODES[str(t.dtype)]
+
+
+def geometry(tensor_map: dict):
+    """A tensor map's dims and byte strides (``flash_attention``
+    ``tensor_map_geometry``) as the ``long long[7]`` the C entry points
+    take."""
+    return (ctypes.c_longlong * 7)(*tensor_map["dims"],
+                                   *tensor_map["strides"])
 
 
 def stream_of(t) -> int:

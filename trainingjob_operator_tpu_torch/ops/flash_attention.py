@@ -1,5 +1,14 @@
-"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
+"""Flash attention: the CUDA kernels ``csrc/flash_fwd_wgmma.cu`` and
+``csrc/flash_fwd.cu`` (forward), ``csrc/flash_bwd_dkv_wgmma.cu`` and
 ``csrc/flash_bwd.cu`` (dQ and dK/dV), each beside its plain version.
+
+Which kernel a CUDA tensor takes goes by dtype and head dim alone
+(``kernel_route``): bf16 at head dims 64 and 128 (``llama2_7b``,
+``base_124m``) runs the forward and dK/dV on the tensor cores (wgmma, TMA,
+an mbarrier ring); float32 at every head dim, bf16 at 16 and 32 (the tiny
+config) and every dQ run the f32-FMA kernels.  The launch plans (kernel,
+grid, tile order, tensor maps, copies) are plain Python (``fwd_plan``,
+``dkv_plan``) so that the CPU tests check them.
 
 Port of the JAX package's ``ops/flash_attention.py``.  The public
 functions take ``[B, T, H, D]`` tensors (k/v may have fewer heads: GQA)
@@ -22,11 +31,30 @@ from trainingjob_operator_tpu_torch.ops import _build
 NEG_INF = -1e30
 #: Head dims the kernels are instantiated for.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims of the tensor-core kernels, which take bf16 only.  TF32 would
+#: break the f32 parity of the training tests at 1e-4, and head dims 16 and
+#: 32 are only the tiny config's, so those stay on the f32-FMA kernels.
+TC_HEAD_DIMS = (64, 128)
+#: Tile rows of the tensor-core forward, (query rows per CTA, keys per K/V
+#: tile), and of dK/dV, (KV rows per CTA, query rows per step).  They set
+#: the TMA boxes and the grids and are the constants kBM, kBN of
+#: csrc/flash_fwd_wgmma.cu and kBN, kBM of csrc/flash_bwd_dkv_wgmma.cu.
+TC_FWD_TILE = (128, 128)
+TC_DKV_TILE = (64, 64)
+#: Columns of a TMA box: 64 bf16 are the 128 bytes the 128-byte swizzle
+#: takes; a head dim of 128 loads as two boxes.
+TMA_BOX_D = 64
+#: Row tile of the f32-FMA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu).
+FMA_TILE = 64
 
-#: Kernel launches since the last reset (chip_smoke.py reads them).
+#: Kernel launches since the last reset (chip_smoke.py reads them):
+#: forward and dK/dV count every launch, whichever kernel ran; the
+#: ``wgmma_*`` counters count the tensor-core kernels' share.
 launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+wgmma_fwd_launches = 0
+wgmma_dkv_launches = 0
 
 
 def _mask(T: int, causal: bool, window: int, device):
@@ -125,25 +153,147 @@ def check_kernel_args(q, k, v) -> None:
             "flash_attention")
 
 
+def kernel_route(dtype, head_dim: int) -> str:
+    """"wgmma" (the tensor-core kernels) for bf16 at ``TC_HEAD_DIMS``, else
+    "fma" (the f32-FMA kernels).  By dtype and head dim alone, never by a
+    failure."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
+
+
+def _tiles(T: int, rows: int) -> int:
+    return -(-T // rows)
+
+
+def tma_ready(t) -> bool:
+    """Whether a tensor map can describe ``t`` [B, T, H, D] in place:
+    d-stride 1, and a 16-byte aligned base and t, h and b strides."""
+    esize = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s * esize % 16 == 0 for s in t.stride()[:3]))
+
+
+def tma_operand(t):
+    """``t`` itself where ``tma_ready``, else an explicit contiguous copy
+    (fresh, so also aligned).  A [B, H, T, D] storage viewed as [B, T, H,
+    D] is read in place; a d-stride other than 1 is copied."""
+    return t if tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def tensor_map_geometry(shape, strides, esize: int, box_rows: int) -> dict:
+    """The 4-D tensor map of a [B, T, H, D] tensor with element ``strides``
+    (d-stride 1): dims innermost first (d, t, h, b), the byte strides of t,
+    h and b, and the box (``TMA_BOX_D`` x ``box_rows`` x 1 x 1)."""
+    B, T, H, D = shape
+    sb, st, sh, sd = strides
+    if sd != 1:
+        raise ValueError(f"a tensor map needs d-stride 1, got {sd}")
+    return {"dims": (D, T, H, B),
+            "strides": (st * esize, sh * esize, sb * esize),
+            "box": (TMA_BOX_D, box_rows, 1, 1)}
+
+
+def _contiguous_strides(shape) -> Tuple[int, ...]:
+    strides, step = [], 1
+    for n in reversed(shape):
+        strides.append(step)
+        step *= n
+    return tuple(reversed(strides))
+
+
+def _maps(tensors: dict, box_rows: dict) -> Tuple[dict, dict]:
+    """Copies and tensor maps of the tensor-core kernels' inputs: a tensor
+    that is not ``tma_ready`` is copied, and its map describes the copy."""
+    copies, maps = {}, {}
+    for name, t in tensors.items():
+        copies[name] = not tma_ready(t)
+        strides = _contiguous_strides(t.shape) if copies[name] \
+            else t.stride()
+        maps[name] = tensor_map_geometry(t.shape, strides, t.element_size(),
+                                         box_rows[name])
+    return copies, maps
+
+
+def fwd_plan(q, k, v) -> dict:
+    """How the forward launches on [B, T, H, D] inputs: the kernel
+    (``kernel_route``), the grid, the query tiles in issue order and, for
+    the tensor-core kernel, which inputs are copied and their tensor maps.
+    Plain Python: the wrapper launches by it and the CPU tests check it."""
+    B, T, H, D = q.shape
+    kernel = kernel_route(q.dtype, D)
+    if kernel == "fma":
+        n = _tiles(T, FMA_TILE)
+        return {"kernel": kernel, "grid": (n, B * H),
+                "tile_order": list(range(n))}
+    rows_q, rows_kv = TC_FWD_TILE
+    n = _tiles(T, rows_q)
+    copies, maps = _maps({"q": q, "k": k, "v": v},
+                         {"q": rows_q, "k": rows_kv, "v": rows_kv})
+    # Every (b, h) in x, the query tile in y from the last (under a causal
+    # mask the heaviest) to the first.
+    return {"kernel": kernel, "grid": (B * H, n),
+            "tile_order": [n - 1 - y for y in range(n)],
+            "copies": copies, "maps": maps}
+
+
+def dkv_plan(q, k, v, g) -> dict:
+    """As ``fwd_plan`` for dK/dV (``g`` is dO): one CTA per (KV tile, b, KV
+    head), KV tiles in ascending order (tile 0 sees every query tile under
+    a causal mask: the heaviest first)."""
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    kernel = kernel_route(q.dtype, D)
+    if kernel == "fma":
+        n = _tiles(T, FMA_TILE)
+        return {"kernel": kernel, "grid": (n, B * Hkv),
+                "tile_order": list(range(n))}
+    rows_kv, rows_q = TC_DKV_TILE
+    n = _tiles(T, rows_kv)
+    copies, maps = _maps({"q": q, "k": k, "v": v, "g": g},
+                         {"q": rows_q, "k": rows_kv, "v": rows_kv,
+                          "g": rows_q})
+    return {"kernel": kernel, "grid": (B * Hkv, n),
+            "tile_order": list(range(n)), "copies": copies, "maps": maps}
+
+
 def flash_kernel_with_lse(q, k, v, *, causal: bool, scale: float,
                           window: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu`` on CUDA tensors [B, T, H, D]; inputs are
-    passed by stride, so no transpose or contiguous copy is made."""
-    global launches
+    """Launch the forward kernel ``fwd_plan`` names on CUDA tensors [B, T,
+    H, D].  The f32-FMA kernel (``csrc/flash_fwd.cu``) reads its inputs by
+    stride; the tensor-core kernel (``csrc/flash_fwd_wgmma.cu``) reads them
+    through tensor maps built from their strides, so neither makes a
+    transpose copy.  An input whose d-stride is not 1 (or whose base or
+    strides are not 16-byte aligned) is copied contiguous for the
+    tensor-core kernel first (``tma_operand``)."""
+    global launches, wgmma_fwd_launches
     check_kernel_args(q, k, v)
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _build.library()
-    code = lib.tj_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, T, H, Hkv, D,
-        _build.dtype_code(q),
-        int(causal), int(window), float(scale),
-        *q.stride(), *k.stride(), *v.stride(), *out.stride(),
-        _build.stream_of(q))
-    _build.check(code, "flash_attention_fwd")
+    plan = fwd_plan(q, k, v)
+    if plan["kernel"] == "wgmma":
+        q, k, v = (tma_operand(x) for x in (q, k, v))
+        maps = plan["maps"]
+        code = lib.tj_flash_fwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, T, H, Hkv, D, int(causal), int(window),
+            float(scale), _build.geometry(maps["q"]),
+            _build.geometry(maps["k"]), _build.geometry(maps["v"]),
+            *out.stride(), _build.stream_of(q))
+        _build.check(code, "flash_attention_fwd_wgmma")
+        wgmma_fwd_launches += 1
+    else:
+        code = lib.tj_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, T, H, Hkv, D,
+            _build.dtype_code(q),
+            int(causal), int(window), float(scale),
+            *q.stride(), *k.stride(), *v.stride(), *out.stride(),
+            _build.stream_of(q))
+        _build.check(code, "flash_attention_fwd")
     launches += 1
     return out, lse
 
@@ -239,22 +389,40 @@ def flash_bwd_dq_kernel(q, k, v, g, lse, delta, *, causal: bool,
 def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool,
                          scale: float, window: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``tj_flash_bwd_dkv`` (``csrc/flash_bwd.cu``) on CUDA tensors:
-    (dk, dv) [B, T, Hkv, D] in k's dtype, the GQA group summed inside the
-    kernel."""
-    global bwd_dkv_launches
+    """Launch the dK/dV kernel ``dkv_plan`` names on CUDA tensors: (dk, dv)
+    [B, T, Hkv, D] in k's dtype, the GQA group summed inside the kernel.
+    ``tj_flash_bwd_dkv`` (``csrc/flash_bwd.cu``) reads q, k, v and dO by
+    stride, ``tj_flash_bwd_dkv_wgmma`` (``csrc/flash_bwd_dkv_wgmma.cu``)
+    through tensor maps, after an explicit contiguous copy of any of them
+    that is not ``tma_ready``."""
+    global bwd_dkv_launches, wgmma_dkv_launches
     _check_bwd_args(q, k, v, g, lse, delta)
     B, T, H, D = q.shape
+    Hkv = k.shape[2]
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    code = _build.library().tj_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, T, H, k.shape[2], D, _build.dtype_code(q),
-        int(causal), int(window), float(scale),
-        *q.stride(), *k.stride(), *v.stride(), *g.stride(), *dk.stride(),
-        *dv.stride(), _build.stream_of(q))
-    _build.check(code, "flash_attention_bwd_dkv")
+    lib = _build.library()
+    plan = dkv_plan(q, k, v, g)
+    if plan["kernel"] == "wgmma":
+        q, k, v, g = (tma_operand(x) for x in (q, k, v, g))
+        maps = plan["maps"]
+        code = lib.tj_flash_bwd_dkv_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, T, H, Hkv, D, int(causal), int(window), float(scale),
+            *(_build.geometry(maps[n]) for n in ("q", "k", "v", "g")),
+            *dk.stride(), *dv.stride(), _build.stream_of(q))
+        _build.check(code, "flash_attention_bwd_dkv_wgmma")
+        wgmma_dkv_launches += 1
+    else:
+        code = lib.tj_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, T, H, Hkv, D, _build.dtype_code(q),
+            int(causal), int(window), float(scale),
+            *q.stride(), *k.stride(), *v.stride(), *g.stride(),
+            *dk.stride(), *dv.stride(), _build.stream_of(q))
+        _build.check(code, "flash_attention_bwd_dkv")
     bwd_dkv_launches += 1
     return dk, dv
 
