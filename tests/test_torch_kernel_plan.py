@@ -38,13 +38,14 @@ def test_the_kernel_goes_by_dtype_and_head_dim(dtype, D, kernel):
     assert flash.dkv_plan(q, k, v, q)["kernel"] == kernel
 
 
-@pytest.mark.parametrize("T,tiles", [(128, 1), (130, 2), (200, 2),
-                                     (1000, 8), (4096, 32)])
+@pytest.mark.parametrize("T,tiles", [(64, 1), (130, 3), (200, 4),
+                                     (1000, 16), (4096, 64)])
 def test_forward_grid_issues_the_heaviest_query_tiles_first(T, tiles):
     q, k, v = _qkv(2, T, 32, 8, 128)
     plan = flash.fwd_plan(q, k, v)
-    # Every (b, h) in x; the query tile in y, last tile first: under a
-    # causal mask the last tile has the most KV tiles.
+    # Every (b, h) in x; the 64-row query tile in y, last tile first: under
+    # a causal mask the last tile has the most KV tiles.
+    assert flash.TC_FWD_TILE == (64, 64)
     assert plan["grid"] == (2 * 32, tiles)
     assert plan["tile_order"] == list(range(tiles - 1, -1, -1))
 
@@ -75,11 +76,11 @@ def test_tensor_maps_of_contiguous_inputs():
     # dims (d, t, h, b); byte strides of t, h and b; 64 x rows boxes.
     assert plan["maps"]["q"] == {"dims": (D, T, H, B),
                                  "strides": (H * D * 2, D * 2, T * H * D * 2),
-                                 "box": (64, 128, 1, 1)}
+                                 "box": (64, 64, 1, 1)}
     assert plan["maps"]["k"] == {"dims": (D, T, Hkv, B),
                                  "strides": (Hkv * D * 2, D * 2,
                                              T * Hkv * D * 2),
-                                 "box": (64, 128, 1, 1)}
+                                 "box": (64, 64, 1, 1)}
     assert plan["maps"]["v"] == plan["maps"]["k"]
     dkv = flash.dkv_plan(q, k, v, q)
     assert flash.TC_DKV_TILE == (64, 64)

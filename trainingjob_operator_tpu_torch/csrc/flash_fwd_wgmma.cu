@@ -25,14 +25,19 @@
 //   accumulator layout of Q . K^T is the register-A layout) and V from
 //   shared memory MN-major through the descriptor's transpose bit, so no
 //   transpose copy;
-// - one producer warp keeps TMA loads in flight: Q once, then K and V tiles
-//   through a ring of kStages stages guarded by full/empty mbarriers, so
-//   loads overlap the two consumer warpgroups' products;
-// - one CTA per (128-row query tile, b, h); the two consumer warpgroups own
-//   64 query rows each.  KV head h / (H / Hkv): grouped KV is never
-//   repeated.  The KV loop runs from the window's first tile to the causal
-//   diagonal (the TPU kernel's bounds); masks are applied only on diagonal,
-//   window-edge and ragged (T % 128) tiles;
+// - one CTA of one warpgroup per (64-row query tile, b, h), two CTAs an SM
+//   (a CTA of several warpgroups gets at most 168 registers a thread).  KV
+//   head h / (H / Hkv): grouped KV is never repeated;
+// - the warpgroup overlaps its own work: Q . K^T of the next KV tile runs
+//   on the tensor cores while it does the softmax of this one, and P . V
+//   of this tile while it issues the next;
+// - Q is loaded once by TMA; K and V tiles stream through two rings of
+//   kStages stages, each stage guarded by an mbarrier.  Thread 0 refills a
+//   stage by TMA as soon as the product that read it is done: K two tiles
+//   ahead, V one;
+// - the KV loop runs from the window's first tile to the causal diagonal
+//   (the TPU kernel's bounds); masks only on diagonal, window-edge and
+//   ragged (T % 64) tiles;
 // - query tiles are issued heaviest first (the last tile of every head
 //   first), so the causal tail does not run alone at the end.
 // Tensor maps (4-D over d, t, h, b, built by the host from the tensors'
@@ -45,12 +50,12 @@
 
 namespace {
 
-constexpr int kBM = 128;  // query rows per CTA (ops/flash_attention.py
-                          // TC_FWD_TILE[0])
-constexpr int kBN = 128;  // keys per K/V tile (TC_FWD_TILE[1])
-constexpr int kStages = 2;
-constexpr int kConsumers = 256;                // two warpgroups
-constexpr int kThreads = kConsumers + 32;      // and one producer warp
+// Query rows per CTA and keys per K/V tile (ops/flash_attention.py
+// TC_FWD_TILE).
+constexpr int kBM = 64;
+constexpr int kBN = 64;
+constexpr int kStages = 2;     // of the K ring and of the V ring
+constexpr int kThreads = 128;  // one warpgroup
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -66,9 +71,9 @@ struct Layout {
   static constexpr int kK = kQ + kQBytes;               // + stage * kKVBytes
   static constexpr int kV = kK + kStages * kKVBytes;    // + stage * kKVBytes
   static constexpr int kBar = kV + kStages * kKVBytes;  // q_full, then per
-                                                        // stage k_full,
-                                                        // v_full, empty
-  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
+                                                        // stage k_full, then
+                                                        // per stage v_full
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
   // Dynamic shared memory is 16-byte aligned; the tiles need 1024.
   static constexpr size_t kAlloc = kBytes + 1024;
 };
@@ -82,8 +87,44 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
     hop::tma_load_4d(dst + p * rows * 128, map, bar, p * 64, t0, h, b);
 }
 
+// Thread 0 loads the K (or V) tile of KV tile kt into its ring's stage
+// i % kStages, where i counts the CTA's tiles from 0.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__device__ __forceinline__ void load_kv(uint8_t* ring, uint64_t* full,
+                                        const CUtensorMap* map, int i, int kt,
+                                        int hk, int b) {
+  const int s = i % kStages;
+  hop::mbar_arrive_expect_tx(&full[s], Layout<D>::kKVBytes);
+  load_tile<D>(ring + s * Layout<D>::kKVBytes, map, &full[s], kBN, kt * kBN,
+               hk, b);
+}
+
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
+                                       const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (D == 128)
+    hop::wgmma_rs_n128(acc, a, desc);
+  else
+    hop::wgmma_rs_n64(acc, a, desc);
+}
+
+// s = Q K^T for the CTA's 64 query rows and one 64-key tile.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t sq,
+                                         uint32_t sk) {
+#pragma unroll
+  for (int j = 0; j < kBN / 2; ++j) s[j] = 0.f;
+  hop::fence_regs(s);
+  hop::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k)
+    hop::wgmma_ss_n64(s, hop::desc_kmajor(sq, kBM, 0, k),
+                      hop::desc_kmajor(sk, kBN, 0, k), k > 0);
+  hop::wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
@@ -94,11 +135,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBar);
-  uint64_t* q_full = bars;
-  uint64_t* k_full = bars + 1;
-  uint64_t* v_full = bars + 1 + kStages;
-  uint64_t* empty = bars + 1 + 2 * kStages;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
 
   const int n_qt = (T_len + kBM - 1) / kBM;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.y);  // heaviest first
@@ -109,97 +148,91 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_kv = (T_len + kBN - 1) / kBN;
   const int kv_end = causal ? min((q0 + kBM + kBN - 1) / kBN, n_kv) : n_kv;
   const int kv_start = (causal && window) ? max(q0 - window + 1, 0) / kBN : 0;
+  const int n = kv_end - kv_start;
 
   if (threadIdx.x == 0) {
     hop::mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       hop::mbar_init(&k_full[s], 1);
       hop::mbar_init(&v_full[s], 1);
-      hop::mbar_init(&empty[s], kConsumers);
     }
     hop::mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= kConsumers) {
-    // Producer warp: one thread issues every TMA load.
-    if (threadIdx.x == kConsumers) {
-      hop::mbar_arrive_expect_tx(q_full, L::kQBytes);
-      load_tile<D>(smem + L::kQ, &map_q, q_full, kBM, q0, h, b);
-      for (int kt = kv_start, i = 0; kt < kv_end; ++kt, ++i) {
-        const int s = i % kStages;
-        const uint32_t phase = (i / kStages) & 1;
-        hop::mbar_wait(&empty[s], phase ^ 1);
-        hop::mbar_arrive_expect_tx(&k_full[s], L::kKVBytes);
-        load_tile<D>(smem + L::kK + s * L::kKVBytes, &map_k, &k_full[s], kBN,
-                     kt * kBN, hk, b);
-        hop::mbar_arrive_expect_tx(&v_full[s], L::kKVBytes);
-        load_tile<D>(smem + L::kV + s * L::kKVBytes, &map_v, &v_full[s], kBN,
-                     kt * kBN, hk, b);
-      }
+    hop::mbar_arrive_expect_tx(q_full, L::kQBytes);
+    load_tile<D>(smem + L::kQ, &map_q, q_full, kBM, q0, h, b);
+    for (int i = 0; i < kStages && i < n; ++i) {
+      load_kv<D>(smem + L::kK, k_full, &map_k, i, kv_start + i, hk, b);
+      load_kv<D>(smem + L::kV, v_full, &map_v, i, kv_start + i, hk, b);
     }
-    return;
   }
+  __syncthreads();  // barriers initialised before anyone waits on them
 
-  // Consumer warpgroup wg owns query rows q0 + 64 wg .. + 63; this thread
-  // rows r and r + 8 of them (the wgmma accumulator layout).
-  const int wg = threadIdx.x / 128;
-  const int t = threadIdx.x % 128;
+  // This thread: rows r and r + 8 of the tile, columns 8 j + cq, + 1 of
+  // each product (the wgmma accumulator layout).
+  const int t = threadIdx.x;
   const int r = 16 * (t / 32) + (t % 32) / 4;
-  const int cq = 2 * (t % 4);  // first of this thread's two columns per 8
-  const int row_lo = q0 + 64 * wg;
-  const int rows[2] = {row_lo + r, row_lo + r + 8};
+  const int cq = 2 * (t % 4);
+  const int rows[2] = {q0 + r, q0 + r + 8};
   const uint32_t sq = hop::smem_addr(smem + L::kQ);
+  const uint32_t sk = hop::smem_addr(smem + L::kK);
+  const uint32_t sv = hop::smem_addr(smem + L::kV);
 
   float acc[D / 2];
-  float s[kBN / 2];  // scores, then probabilities, of the current tile
+  float s[kBN / 2];       // scores, then probabilities, of this tile
+  float s_next[kBN / 2];  // scores of the next tile, in flight
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's share; the quad sums at the end
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
 
   hop::mbar_wait(q_full, 0);
-  for (int kt = kv_start, i = 0; kt < kv_end; ++kt, ++i) {
-    const int st = i % kStages;
-    const uint32_t phase = (i / kStages) & 1;
-    const int k0 = kt * kBN;
-    const uint32_t sk = hop::smem_addr(smem + L::kK + st * L::kKVBytes);
-    const uint32_t sv = hop::smem_addr(smem + L::kV + st * L::kKVBytes);
+  hop::mbar_wait(&k_full[0], 0);
+  issue_qk<D>(s, sq, sk);
+  hop::wgmma_wait<0>();
+  hop::fence_regs(s);
+  __syncthreads();  // K stage 0 is free: tile 2 goes there
+  if (t == 0 && kStages < n)
+    load_kv<D>(smem + L::kK, k_full, &map_k, kStages, kv_start + kStages, hk,
+               b);
 
-    // s = Q K^T for this warpgroup's 64 rows (the zeros end the previous
-    // tile's s, which the first step overwrites anyway, so it is not kept
-    // live across the loop).
-#pragma unroll
-    for (int j = 0; j < kBN / 2; ++j) s[j] = 0.f;
-    hop::mbar_wait(&k_full[st], phase);
-    hop::fence_regs(s);
-    hop::wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      hop::wgmma_ss_n128(s, hop::desc_kmajor(sq, kBM, 64 * wg, k),
-                         hop::desc_kmajor(sk, kBN, 0, k), k > 0);
-    hop::wgmma_commit();
-    hop::wgmma_wait<0>();
-    hop::fence_regs(s);
+  for (int i = 0; i < n; ++i) {
+    const bool more = i + 1 < n;
+    const int k0 = (kv_start + i) * kBN;
+    if (more) {
+      const int sn = (i + 1) % kStages;
+      hop::mbar_wait(&k_full[sn], ((i + 1) / kStages) & 1);
+      issue_qk<D>(s_next, sq, sk + sn * L::kKVBytes);
+    }
+    // P V of the previous tile has to land before acc is rescaled.
+    if (more)
+      hop::wgmma_wait<1>();
+    else
+      hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    if (i >= 1 && more) {
+      __syncthreads();  // V stage (i - 1) % kStages is free
+      if (t == 0)
+        load_kv<D>(smem + L::kV, v_full, &map_v, i + 1, kv_start + i + 1, hk,
+                   b);
+    }
 
     // Online softmax on the accumulator fragments.  Only diagonal,
     // window-edge and ragged tiles carry a mask.
     const bool masked =
         k0 + kBN > T_len ||
-        (causal && (k0 + kBN - 1 > row_lo ||
-                    (window && k0 <= row_lo + 63 - window)));
+        (causal && (k0 + kBN - 1 > q0 ||
+                    (window && k0 <= q0 + kBM - 1 - window)));
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int ri = c / 2;
         float z = s[4 * j + c] * scale;
         if (masked) {
           const int col = k0 + 8 * j + cq + (c % 2);
+          const int row = rows[c / 2];
           bool ok = col < T_len;
           if (causal) {
-            ok = ok && col <= rows[ri];
-            if (window) ok = ok && col > rows[ri] - window;
+            ok = ok && col <= row;
+            if (window) ok = ok && col > row - window;
           }
           z = ok ? z : kNegInf;
         }
@@ -240,21 +273,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t pa[kBN / 16][4];
 #pragma unroll
     for (int k = 0; k < kBN / 16; ++k) hop::acc_to_a(s, k, pa[k]);
-    hop::mbar_wait(&v_full[st], phase);
+    const int st = i % kStages;
+    hop::mbar_wait(&v_full[st], (i / kStages) & 1);
     hop::fence_regs(acc);
     hop::wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < kBN / 16; ++k) {
-      if constexpr (D == 128)
-        hop::wgmma_rs_n128(acc, pa[k], hop::desc_mnmajor(sv, kBN, k));
-      else
-        hop::wgmma_rs_n64(acc, pa[k], hop::desc_mnmajor(sv, kBN, k));
-    }
+    for (int k = 0; k < kBN / 16; ++k)
+      mma_pv<D>(acc, pa[k],
+                hop::desc_mnmajor(sv + st * L::kKVBytes, kBN, k));
     hop::wgmma_commit();
-    hop::wgmma_wait<0>();
-    hop::fence_regs(acc);
-    hop::mbar_arrive(&empty[st]);
+
+    if (more) {
+      // The next tile's scores have landed (groups complete in order); its
+      // K stage is free for the tile after next.
+      hop::wgmma_wait<1>();
+      hop::fence_regs(s_next);
+      __syncthreads();
+      if (t == 0 && i + 1 + kStages < n)
+        load_kv<D>(smem + L::kK, k_full, &map_k, i + 1 + kStages,
+                   kv_start + i + 1 + kStages, hk, b);
+#pragma unroll
+      for (int j = 0; j < kBN / 2; ++j) s[j] = s_next[j];
+    }
   }
+  hop::wgmma_wait<0>();
+  hop::fence_regs(acc);
 
   // Epilogue: O = acc / max(l, 1e-30) in bf16, LSE = m + log(max(l, 1e-30)).
 #pragma unroll

@@ -39,7 +39,7 @@ TC_HEAD_DIMS = (64, 128)
 #: tile), and of dK/dV, (KV rows per CTA, query rows per step).  They set
 #: the TMA boxes and the grids and are the constants kBM, kBN of
 #: csrc/flash_fwd_wgmma.cu and kBN, kBM of csrc/flash_bwd_dkv_wgmma.cu.
-TC_FWD_TILE = (128, 128)
+TC_FWD_TILE = (64, 64)
 TC_DKV_TILE = (64, 64)
 #: Columns of a TMA box: 64 bf16 are the 128 bytes the 128-byte swizzle
 #: takes; a head dim of 128 loads as two boxes.
