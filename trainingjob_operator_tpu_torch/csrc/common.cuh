@@ -1,4 +1,5 @@
-// Helpers shared by the kernels: f32 <-> element-type conversion.
+// Helpers shared by the kernels: f32 <-> element-type conversion, the
+// strides of a [B, T, H, D] tensor, the shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +26,24 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// Element strides of a [B, T, H, D] tensor, as the C entry points take them.
+struct Strides {
+  long long b, t, h, d;
+};
+
+// Above 48 KB of shared memory needs the opt-in, once per instantiation (not
+// per launch, so launches can be captured into a CUDA graph).
+template <typename Kernel>
+inline int opt_in_smem(Kernel kernel, size_t bytes, bool* configured) {
+  if (*configured) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *configured = true;
+  return 0;
 }
 
 }  // namespace tj

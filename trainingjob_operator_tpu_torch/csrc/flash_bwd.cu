@@ -53,9 +53,7 @@ namespace {
 constexpr int kB = 64;  // query and key tile rows
 constexpr int kThreads = 256;
 
-struct Strides {
-  long long b, t, h, d;
-};
+using tj::Strides;
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -344,19 +342,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Above 48 KB of shared memory needs the opt-in, once per instantiation (not
-// per launch, so launches can be captured into a CUDA graph).
-template <typename Kernel>
-int opt_in_smem(Kernel kernel, size_t bytes, bool* configured) {
-  if (*configured) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *configured = true;
-  return 0;
-}
-
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -370,7 +355,8 @@ template <typename T, int D>
 int launch_dq(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   static bool configured = false;
-  if (const int err = opt_in_smem(flash_bwd_dq_kernel<T, D>, smem, &configured))
+  if (const int err =
+          tj::opt_in_smem(flash_bwd_dq_kernel<T, D>, smem, &configured))
     return err;
   const dim3 grid((a.T_len + kB - 1) / kB, a.B * a.H);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
@@ -386,7 +372,7 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   static bool configured = false;
   if (const int err =
-          opt_in_smem(flash_bwd_dkv_kernel<T, D>, smem, &configured))
+          tj::opt_in_smem(flash_bwd_dkv_kernel<T, D>, smem, &configured))
     return err;
   const dim3 grid((a.T_len + kB - 1) / kB, a.B * a.Hkv);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(

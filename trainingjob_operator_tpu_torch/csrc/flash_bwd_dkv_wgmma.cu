@@ -56,17 +56,14 @@
 namespace {
 
 // KV rows per CTA and query rows per step (ops/flash_attention.py
-// TC_DKV_TILE).  32 query rows a step took 1.4x as long at the training
-// shape.
+// TC_DKV_TILE); 32 query rows a step were slower at the training shape.
 constexpr int kBN = 64;
 constexpr int kBM = 64;
 constexpr int kStages = 2;
 constexpr int kThreads = 128;  // one warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct Strides {
-  long long b, t, h, d;
-};
+using tj::Strides;
 
 template <int D>
 struct Layout {
@@ -83,15 +80,6 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * (1 + kStages);
   static constexpr size_t kAlloc = kBytes + 1024;  // 1024-byte alignment
 };
-
-template <int D>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
-                                          uint64_t* bar, int rows, int t0,
-                                          int h, int b) {
-#pragma unroll
-  for (int p = 0; p < D / 64; ++p)
-    hop::tma_load_4d(dst + p * rows * 128, map, bar, p * 64, t0, h, b);
-}
 
 template <int D>
 __device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
@@ -117,12 +105,15 @@ __device__ __forceinline__ void fill_stage(
   if (threadIdx.x == 0) {
     uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar) + 1;
     hop::mbar_arrive_expect_tx(&full[s], 2 * L::kQBytes);
-    load_tile<D>(smem + L::kQ + s * L::kQBytes, map_q, &full[s], kBM, q0, h, b);
-    load_tile<D>(smem + L::kG + s * L::kQBytes, map_g, &full[s], kBM, q0, h, b);
+    hop::load_tile<D>(smem + L::kQ + s * L::kQBytes, map_q, &full[s], kBM,
+                      q0, h, b);
+    hop::load_tile<D>(smem + L::kG + s * L::kQBytes, map_g, &full[s], kBM,
+                      q0, h, b);
   }
-  if (threadIdx.x < kBM) {
+  const int j = threadIdx.x;
+  if (j < kBM) {
     float* st = reinterpret_cast<float*>(smem + L::kStat) + s * 2 * kBM;
-    const int t = q0 + threadIdx.x;
+    const int t = q0 + j;
     const long long at = (static_cast<long long>(b) * H + h) * T_len + t;
     st[threadIdx.x] = t < T_len ? lse[at] : 0.f;
     st[kBM + threadIdx.x] = t < T_len ? delta[at] : 0.f;
@@ -164,8 +155,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_wgmma_kernel(
     for (int s = 0; s < kStages; ++s) hop::mbar_init(&full[s], 1);
     hop::mbar_fence_init();
     hop::mbar_arrive_expect_tx(kv_full, 2 * L::kKVBytes);
-    load_tile<D>(smem + L::kK, &map_k, kv_full, kBN, k0, hk, b);
-    load_tile<D>(smem + L::kV, &map_v, kv_full, kBN, k0, hk, b);
+    hop::load_tile<D>(smem + L::kK, &map_k, kv_full, kBN, k0, hk, b);
+    hop::load_tile<D>(smem + L::kV, &map_v, kv_full, kBN, k0, hk, b);
   }
   __syncthreads();  // barriers initialised before anyone waits on them
   for (int i = 0; i < kStages && i < n_steps; ++i)
@@ -315,7 +306,7 @@ int launch(const void* q, const void* k, const void* v, const void* g,
            const long long* gg, Strides sdk, Strides sdv,
            cudaStream_t stream) {
   static bool configured = false;
-  if (const int err = hop::opt_in_smem(flash_bwd_dkv_wgmma_kernel<D>,
+  if (const int err = tj::opt_in_smem(flash_bwd_dkv_wgmma_kernel<D>,
                                        Layout<D>::kAlloc, &configured))
     return err;
   CUtensorMap mq, mk, mv, mg;

@@ -37,9 +37,7 @@ constexpr int kBK = 64;
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
-struct Strides {
-  long long b, t, h, d;
-};
+using tj::Strides;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -194,16 +192,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            float scale, Strides sq, Strides sk, Strides sv, Strides so,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  // Above 48 KB of shared memory needs the opt-in, once per instantiation
-  // (not per launch, so launches can be captured into a CUDA graph).
-  static bool smem_configured = false;
-  if (!smem_configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_configured = true;
-  }
+  static bool configured = false;
+  if (const int err =
+          tj::opt_in_smem(flash_fwd_kernel<T, D>, smem, &configured))
+    return err;
   const dim3 grid((T_len + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -59,9 +59,7 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct Strides {
-  long long b, t, h, d;
-};
+using tj::Strides;
 
 template <int D>
 struct Layout {
@@ -78,15 +76,6 @@ struct Layout {
   static constexpr size_t kAlloc = kBytes + 1024;
 };
 
-template <int D>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
-                                          uint64_t* bar, int rows, int t0,
-                                          int h, int b) {
-#pragma unroll
-  for (int p = 0; p < D / 64; ++p)
-    hop::tma_load_4d(dst + p * rows * 128, map, bar, p * 64, t0, h, b);
-}
-
 // Thread 0 loads the K (or V) tile of KV tile kt into its ring's stage
 // i % kStages, where i counts the CTA's tiles from 0.
 template <int D>
@@ -95,8 +84,8 @@ __device__ __forceinline__ void load_kv(uint8_t* ring, uint64_t* full,
                                         int hk, int b) {
   const int s = i % kStages;
   hop::mbar_arrive_expect_tx(&full[s], Layout<D>::kKVBytes);
-  load_tile<D>(ring + s * Layout<D>::kKVBytes, map, &full[s], kBN, kt * kBN,
-               hk, b);
+  hop::load_tile<D>(ring + s * Layout<D>::kKVBytes, map, &full[s], kBN,
+                    kt * kBN, hk, b);
 }
 
 template <int D>
@@ -158,7 +147,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     hop::mbar_fence_init();
     hop::mbar_arrive_expect_tx(q_full, L::kQBytes);
-    load_tile<D>(smem + L::kQ, &map_q, q_full, kBM, q0, h, b);
+    hop::load_tile<D>(smem + L::kQ, &map_q, q_full, kBM, q0, h, b);
     for (int i = 0; i < kStages && i < n; ++i) {
       load_kv<D>(smem + L::kK, k_full, &map_k, i, kv_start + i, hk, b);
       load_kv<D>(smem + L::kV, v_full, &map_v, i, kv_start + i, hk, b);
@@ -327,7 +316,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            float scale, const long long* gq, const long long* gk,
            const long long* gv, Strides so, cudaStream_t stream) {
   static bool configured = false;
-  if (const int err = hop::opt_in_smem(flash_fwd_wgmma_kernel<D>,
+  if (const int err = tj::opt_in_smem(flash_fwd_wgmma_kernel<D>,
                                        Layout<D>::kAlloc, &configured))
     return err;
   CUtensorMap mq, mk, mv;

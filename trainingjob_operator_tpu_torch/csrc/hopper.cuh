@@ -101,6 +101,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A panelled tile (see the top of this file): rows t0 .. t0 + rows - 1 of
+// head h of batch b, all D columns, as D / 64 boxes of 64 columns.
+template <int D>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int rows, int t0,
+                                          int h, int b) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+    tma_load_4d(dst + p * rows * 128, map, bar, p * 64, t0, h, b);
+}
+
 // ---- wgmma ------------------------------------------------------------------
 
 // Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
@@ -334,19 +345,6 @@ inline int make_map(CUtensorMap* map, const void* base, const long long* geom,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Above 48 KB of shared memory needs the opt-in, once per instantiation (not
-// per launch, so launches can be captured into a CUDA graph).
-template <typename Kernel>
-int opt_in_smem(Kernel kernel, size_t bytes, bool* configured) {
-  if (*configured) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *configured = true;
-  return 0;
 }
 
 }  // namespace hop
