@@ -19,7 +19,9 @@ script exits non-zero):
    kernels' gradients (dQ, dK/dV, ``BWD_TOL``) are held to about one bf16
    step, an atol that is a fraction of the reference's RMS and a relative
    L2 limit; the backward must give bit-identical results on a second
-   run.
+   run.  RMSNorm is timed over a rotation of input copies twice the size
+   of the card's L2, so that every call reads its input from device
+   memory.
 3. tiny_equivalence: the tiny config in fp32 through the kernels; every
    request of a DecodeService run must get exactly the tokens ``generate``
    gives for its prompt.
@@ -43,13 +45,13 @@ script exits non-zero):
    accum 2, remat "none": 8 steps on one repeated batch; losses finite
    and the last below the first; per step 16 launches each of the flash
    forward, dQ and dK/dV and 34 of RMSNorm (the formula of phase 4), every
-   flash forward and dK/dV launch on the tensor-core kernels.
+   flash forward, dQ and dK/dV launch on the tensor-core kernels.
 
-Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, the
-tensor-core (wgmma) and f32-FMA flash forwards, dQ, and the tensor-core
-and f32-FMA dK/dV, with their launches on the paths driven (the 7B phases
-5-7 run the bf16 tensor-core kernels, the tiny fp32 phases 3-4 the f32-FMA
-ones) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
+Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
+the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
+dK/dV, with their launches on the paths driven (the 7B phases 5-7 run the
+bf16 tensor-core kernels, the tiny fp32 phases 3-4 the f32-FMA ones) and,
+last, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when CUDA is unavailable or the package is not
 beside this script.
 """
@@ -57,6 +59,7 @@ beside this script.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -66,6 +69,8 @@ import time
 #: Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+#: The H100's L2 cache.
+L2_BYTES = 50e6
 
 EPS = 1e-5
 #: (rtol, atol) of the RMSNorm kernel vs its plain version on the card:
@@ -81,22 +86,21 @@ OUT_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
 #: at n = 4096), so an absolute 2e-2 would let a wrong late query tile pass.
 #:
 #: The tensor-core kernels ("bfloat16_wgmma": csrc/flash_fwd_wgmma.cu,
-#: csrc/flash_bwd_dkv_wgmma.cu) also round P (forward; P and dz in dK/dV)
-#: to bf16 before the products that take it, as FlashAttention-2/3 and
-#: SDPA's flash kernels do.  Rounding to nearest bf16 leaves a relative
+#: csrc/flash_bwd_dq_wgmma.cu, csrc/flash_bwd_dkv_wgmma.cu) also round P
+#: (forward; dz in dQ; P and dz in dK/dV) to bf16 before the products that
+#: take it, as FlashAttention-2/3 and SDPA's flash kernels do.  Rounding to nearest bf16 leaves a relative
 #: error uniform within half a step, 2^-8 .. 2^-9 of the value: over
 #: mantissas spread evenly in log, an RMS of 2^-7 sqrt(0.541 / 12) = 1.7e-3.
 #: Each output entry sums many such rounded terms with random signs, so it
 #: carries an absolute error of about 1.7e-3 x the RMS of its row (the row's
-#: scale, not the tensor's: under a causal mask an early row of O or a
-#: first KV row of dK/dV is far above the tensor's RMS).  Hence:
+#: scale, not the tensor's: under a causal mask an early row of O or dQ or
+#: a first KV row of dK/dV is far above the tensor's RMS).  Hence:
 #: - atol = 2e-2 x the RMS of each row (over D): the largest of 2^24
 #:   Gaussian errors is about 5.8 sigma = 1e-2 x the row's RMS, doubled;
 #: - rtol stays 1e-2: the final cast may still put the two one bf16 step
 #:   apart;
 #: - relative L2 5e-3: the 1.7e-3 of P's rounding and up to 1.7e-3 more
 #:   from the two final casts, sqrt(2) x 1.7e-3 = 2.4e-3, doubled.
-#: dQ (csrc/flash_bwd.cu, f32 products) keeps BWD_TOL["bfloat16"].
 FWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4),
            "bfloat16_wgmma": (1e-2, 2e-2)}
 FWD_L2_RTOL = {"bfloat16": 1e-3, "float32": 1e-5, "bfloat16_wgmma": 5e-3}
@@ -109,9 +113,12 @@ ROW_ATOL = ("bfloat16_wgmma",)
 #: sit one bf16 step apart (at most 2^-7 relative); the atol only covers
 #: entries near 0.  Beside it the whole tensor's relative L2 error is held
 #: to BWD_L2_RTOL.
-#: The tensor-core dK/dV kernel ("bfloat16_wgmma") rounds p and dz to bf16
-#: before p^T . dO and dz^T . q: FWD_TOL's reasoning gives it the same
-#: limits as the tensor-core forward.
+#: The tensor-core dQ and dK/dV kernels ("bfloat16_wgmma") round dz (dQ:
+#: before dz . k) and p and dz (dK/dV: before p^T . dO and dz^T . q) to
+#: bf16.  dQ sums its rounded dz . k terms over the keys as dK sums its
+#: dz^T . q terms over the queries, each term carrying the same 1.7e-3
+#: relative RMS error, so FWD_TOL's reasoning gives both the limits of the
+#: tensor-core forward.
 BWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4),
            "bfloat16_wgmma": FWD_TOL["bfloat16_wgmma"]}
 BWD_L2_RTOL = {"bfloat16": 1e-3, "float32": 1e-5,
@@ -181,41 +188,68 @@ def max_violation(got, want, rtol, atol) -> float:
     return float(((g - w).abs() - (atol + rtol * w.abs())).max())
 
 
+#: (rows, dtype) of the RMSNorm checks, all at D = 4096 (Llama-2-7B): a
+#: serve tick's 4 slots, 16 rows, a 2048-token prefill and the training
+#: step's microbatch of 4096 tokens.
+RMS_CASES = [(4, "bfloat16"), (4, "float32"), (16, "bfloat16"),
+             (16, "float32"), (2048, "bfloat16"), (2048, "float32"),
+             (4096, "bfloat16")]
+
+
+def rotating(fn, xs):
+    """``fn`` applied to the next of the inputs ``xs`` at each call."""
+    turn = itertools.cycle(range(len(xs)))
+    return lambda: fn(xs[next(turn)])
+
+
 def check_rmsnorm(torch, F, fused):
+    """The kernel against its plain version at RMS_CASES.  Every timed call
+    (kernel, plain version, ``F.rms_norm``) takes the next of n copies of
+    the input that together hold twice the L2 cache, so no call finds its
+    input in L2; at least 200 (50 for the larger shapes) calls, and a
+    whole number of turns of the rotation."""
     cases = []
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for rows in (4, 16, 2048):
-        for dname in ("bfloat16", "float32"):
-            dtype = getattr(torch, dname)
-            d = 4096
-            x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-            scale = 1.0 + 0.5 * torch.randn(d, generator=gen, device=dev)
-            got = fused.rmsnorm_kernel(x, scale, EPS)
-            want = fused.rmsnorm_reference(x, scale, EPS)
-            torch.cuda.synchronize()
-            rtol, atol = OUT_TOL[dname]
-            err = float((got.float() - want.float()).abs().max())
-            if max_violation(got, want, rtol, atol) > 0:
-                raise AssertionError(f"rmsnorm [{rows}, {d}] {dname}: "
-                                     f"max abs err {err} over tolerance")
-            iters = 200 if rows < 2048 else 50
-            scale_x = scale.to(dtype)
-            esize = x.element_size()
-            t_bound, by = bound(2 * rows * d * esize + d * 4, 4 * rows * d,
-                                "float32")
-            cases.append({
-                "shape": [rows, d], "dtype": dname,
-                "max_abs_err": err, "rtol": rtol, "atol": atol,
-                "ms": time_ms(lambda: fused.rmsnorm_kernel(x, scale, EPS),
-                              iters),
-                "eager_ms": eager_ms(
-                    lambda: fused.rmsnorm_kernel(x, scale, EPS), iters),
-                "plain_ms": time_ms(
-                    lambda: fused.rmsnorm_reference(x, scale, EPS), iters),
-                "library_ms": time_ms(
-                    lambda: F.rms_norm(x, (d,), scale_x, EPS), iters),
-                "bound_ms": t_bound, "bound_by": by})
+    d = 4096
+    for rows, dname in RMS_CASES:
+        dtype = getattr(torch, dname)
+        x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        scale = 1.0 + 0.5 * torch.randn(d, generator=gen, device=dev)
+        got = fused.rmsnorm_kernel(x, scale, EPS)
+        want = fused.rmsnorm_reference(x, scale, EPS)
+        torch.cuda.synchronize()
+        rtol, atol = OUT_TOL[dname]
+        err = float((got.float() - want.float()).abs().max())
+        if max_violation(got, want, rtol, atol) > 0:
+            raise AssertionError(f"rmsnorm [{rows}, {d}] {dname}: "
+                                 f"max abs err {err} over tolerance")
+        n_copies = max(2, math.ceil(2 * L2_BYTES / (x.numel()
+                                                   * x.element_size())))
+        xs = x.expand(n_copies, rows, d).contiguous()
+        base = 200 if rows < 2048 else 50
+        iters = n_copies * math.ceil(base / n_copies)
+        scale_x = scale.to(dtype)
+        esize = x.element_size()
+        t_bound, by = bound(2 * rows * d * esize + d * 4, 4 * rows * d,
+                            "float32")
+
+        def timed(fn, timer=time_ms):
+            return timer(rotating(fn, xs), iters)
+        cases.append({
+            "shape": [rows, d], "dtype": dname,
+            "plan": fused.rmsnorm_plan(rows, d, esize),
+            "max_abs_err": err, "rtol": rtol, "atol": atol,
+            "rotation": n_copies, "iters": iters,
+            "ms": timed(lambda a: fused.rmsnorm_kernel(a, scale, EPS)),
+            "eager_ms": timed(lambda a: fused.rmsnorm_kernel(a, scale, EPS),
+                              eager_ms),
+            "plain_ms": timed(
+                lambda a: fused.rmsnorm_reference(a, scale, EPS)),
+            "library_ms": timed(lambda a: F.rms_norm(a, (d,), scale_x, EPS)),
+            "bound_ms": t_bound, "bound_by": by})
+        del x, xs, got, want
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -414,8 +448,9 @@ def check_flash_bwd(torch, F, flash):
         delta = flash.flash_delta(do, out)
         args = (q, k, v, do, lse, delta)
         kernel = flash.dkv_plan(q, k, v, do)["kernel"]
+        dq_kernel = flash.dq_plan(q, k, v, do)["kernel"]
         dq = launched(torch, lambda: flash.flash_bwd_dq_kernel(*args, **opts),
-                      "flash_attention_bwd_dq", "fma")
+                      "flash_attention_bwd_dq", dq_kernel)
         dk, dv = launched(
             torch, lambda: flash.flash_bwd_dkv_kernel(*args, **opts),
             "flash_attention_bwd_dkv", kernel)
@@ -429,7 +464,7 @@ def check_flash_bwd(torch, F, flash):
         tag = f"flash bwd B={B} T={T} H={H}/{Hkv} D={D} w={window} {dname}"
         errs = {}
         for name, got, want, key in (
-                ("dq", dq, want_dq, dname),
+                ("dq", dq, want_dq, limits(dname, dq_kernel)),
                 ("dk", dk, want_dk, limits(dname, kernel)),
                 ("dv", dv, want_dv, limits(dname, kernel))):
             errs[name] = grad_check(torch, got, want, key)
@@ -460,7 +495,7 @@ def check_flash_bwd(torch, F, flash):
                             6 * D * pairs, dname)
         ms = time_ms(lambda: flash.flash_bwd_dq_kernel(*args, **opts), iters)
         dq_cases.append({
-            **common, "kernel": "fma",
+            **common, "kernel": dq_kernel,
             "max_abs_err": errs["dq"]["max_abs_err"], "dq": errs["dq"],
             "ms": ms, **rates(6 * D * pairs, ms, t_bound),
             "eager_ms": eager_ms(
@@ -493,7 +528,8 @@ def train_launches(L: int, remat: str, micro_steps: int,
                    tensor_cores: bool = False):
     """Kernel launches of ``micro_steps`` microbatch steps of an L-layer
     model (phase 4's formula); with ``tensor_cores`` (bf16 at head dim 64
-    or 128) every flash forward and dK/dV launch is a tensor-core one."""
+    or 128) every flash forward, dQ and dK/dV launch is a tensor-core
+    one."""
     full = remat == "full"
     fwd = micro_steps * (2 if full else 1) * L
     return {"rmsnorm_fwd": micro_steps * ((4 if full else 2) * L + 1),
@@ -501,6 +537,8 @@ def train_launches(L: int, remat: str, micro_steps: int,
             "flash_attention_bwd_dq": micro_steps * L,
             "flash_attention_bwd_dkv": micro_steps * L,
             "flash_attention_fwd_wgmma": fwd if tensor_cores else 0,
+            "flash_attention_bwd_dq_wgmma":
+                micro_steps * L if tensor_cores else 0,
             "flash_attention_bwd_dkv_wgmma":
                 micro_steps * L if tensor_cores else 0}
 
@@ -875,10 +913,9 @@ def main() -> int:
              tiny_train["full"]]
     launches = {k: sum(p["launches"][k] for p in paths)
                 for k in ops.launch_counts()}
-    fma_fwd = launches["flash_attention_fwd"] \
-        - launches["flash_attention_fwd_wgmma"]
-    fma_dkv = launches["flash_attention_bwd_dkv"] \
-        - launches["flash_attention_bwd_dkv_wgmma"]
+    fma = {key: launches[key] - launches[f"{key}_wgmma"]
+           for key in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                       "flash_attention_bwd_dkv")}
     src = "trainingjob_operator_tpu_torch/csrc/"
     tpu = "trainingjob_operator_tpu/ops/"
 
@@ -894,11 +931,15 @@ def main() -> int:
                 launches["flash_attention_fwd_wgmma"]),
         summary("flash_attention_fwd_fma", "cuda", src + "flash_fwd.cu",
                 tpu + "flash_attention.py:40", of(flash_cases, "fma"),
-                flash_cases[FMA_FLASH_CASE], fma_fwd),
-        summary("flash_attention_bwd_dq", "cuda", src + "flash_bwd.cu",
-                tpu + "flash_attention.py:170", dq_cases,
+                flash_cases[FMA_FLASH_CASE], fma["flash_attention_fwd"]),
+        summary("flash_attention_bwd_dq_wgmma", "cuda",
+                src + "flash_bwd_dq_wgmma.cu",
+                tpu + "flash_attention.py:170", of(dq_cases, "wgmma"),
                 dq_cases[TRAIN_FLASH_CASE],
-                launches["flash_attention_bwd_dq"]),
+                launches["flash_attention_bwd_dq_wgmma"]),
+        summary("flash_attention_bwd_dq_fma", "cuda", src + "flash_bwd.cu",
+                tpu + "flash_attention.py:170", of(dq_cases, "fma"),
+                dq_cases[FMA_FLASH_CASE], fma["flash_attention_bwd_dq"]),
         summary("flash_attention_bwd_dkv_wgmma", "cuda",
                 src + "flash_bwd_dkv_wgmma.cu",
                 tpu + "flash_attention.py:219", of(dkv_cases, "wgmma"),
@@ -906,7 +947,7 @@ def main() -> int:
                 launches["flash_attention_bwd_dkv_wgmma"]),
         summary("flash_attention_bwd_dkv_fma", "cuda", src + "flash_bwd.cu",
                 tpu + "flash_attention.py:219", of(dkv_cases, "fma"),
-                dkv_cases[FMA_FLASH_CASE], fma_dkv),
+                dkv_cases[FMA_FLASH_CASE], fma["flash_attention_bwd_dkv"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

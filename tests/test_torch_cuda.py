@@ -45,10 +45,6 @@ pytestmark = pytest.mark.cuda
 #: chip_smoke.fwd_check instead (about one bf16 step, atol a fraction of
 #: the reference's RMS, and a relative L2 limit).
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
-#: (rtol, atol as a fraction of the reference's RMS) of the flash backward
-#: kernels: both round the same f32 sums to the input dtype, so bf16
-#: gradients may sit one bf16 step (at most 2^-7 relative) apart.
-BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
 
 
 @pytest.fixture
@@ -60,8 +56,12 @@ def dev():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(1, 64), (13, 64), (16, 4096)])
+@pytest.mark.parametrize("rows,d", [(1, 64), (13, 64), (16, 4096),
+                                    (5, 768), (300, 4096), (3, 8192),
+                                    (2, 24), (1000, 128)])
 def test_rmsnorm_kernel_matches_plain(dev, dtype, rows, d):
+    # Teams of 1 and 2 warps a row (f32 4096, 8192), 1 to 8 warps a CTA,
+    # rows that do not fill the last CTA, partly idle lanes (d = 24, 768).
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(rows, d, generator=g, device=dev).to(dtype)
     scale = torch.randn(d, generator=g, device=dev)
@@ -130,20 +130,24 @@ def test_tensor_core_kernels_read_a_bhtd_view_in_place(dev):
     q, k, v, do = (torch.randn(2, 4, 130, 128, generator=g, device=dev)
                    .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
     assert not any(flash.dkv_plan(q, k, v, do)["copies"].values())
+    assert not any(flash.dq_plan(q, k, v, do)["copies"].values())
     opts = dict(causal=True, scale=128 ** -0.5, window=0)
     ops.reset_launch_counts()
     out, lse = flash.flash_kernel_with_lse(q, k, v, **opts)
     delta = flash.flash_delta(do, out)
+    dq = flash.flash_bwd_dq_kernel(q, k, v, do, lse, delta, **opts)
     dk, dv = flash.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **opts)
     counts = ops.launch_counts()
     assert counts["flash_attention_fwd_wgmma"] == 1
+    assert counts["flash_attention_bwd_dq_wgmma"] == 1
     assert counts["flash_attention_bwd_dkv_wgmma"] == 1
     want, _ = flash.flash_reference_with_lse(q, k, v, **opts)
     check = smoke.fwd_check(torch, out, want, "bfloat16_wgmma")
     assert check["ok"], check
+    want_dq = flash.flash_bwd_dq_reference(q, k, v, do, lse, delta, **opts)
     want_dk, want_dv = flash.flash_bwd_dkv_reference(q, k, v, do, lse,
                                                      delta, **opts)
-    for got, want in ((dk, want_dk), (dv, want_dv)):
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         check = smoke.grad_check(torch, got, want, "bfloat16_wgmma")
         assert check["ok"], check
 
@@ -205,18 +209,15 @@ def test_flash_backward_kernels_match_plain(dev, causal, H, Hkv, T, D,
     assert counts["flash_attention_bwd_dq"] == 1
     assert counts["flash_attention_bwd_dkv"] == 1
     tc = flash.kernel_route(dtype, D) == "wgmma"
+    assert counts["flash_attention_bwd_dq_wgmma"] == int(tc)
     assert counts["flash_attention_bwd_dkv_wgmma"] == int(tc)
     want_dq = flash.flash_bwd_dq_reference(q, k, v, do, lse, delta, **opts)
     want_dk, want_dv = flash.flash_bwd_dkv_reference(q, k, v, do, lse,
                                                      delta, **opts)
-    rtol, atol_rms = BWD_TOL[dtype]
-    want_dq = want_dq.float()
-    atol = atol_rms * float(want_dq.square().mean().sqrt())
-    assert dq.dtype == dtype and dq.shape == want_dq.shape
-    torch.testing.assert_close(dq.float(), want_dq, rtol=rtol, atol=atol)
-    # dK/dV as chip_smoke holds them: the tensor-core kernel rounds p and
-    # dz to bf16 before its products (BWD_TOL["bfloat16_wgmma"]).
-    for got, want in ((dk, want_dk), (dv, want_dv)):
+    # As chip_smoke holds them: the tensor-core kernels round dz (and p)
+    # to bf16 before their products (BWD_TOL["bfloat16_wgmma"]), the
+    # f32-FMA kernels round only their f32 sums.
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert got.dtype == dtype and got.shape == want.shape
         check = smoke.grad_check(torch, got, want, _limits(dtype, D))
         assert check["ok"], check
@@ -270,6 +271,7 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
                       "flash_attention_bwd_dq": 3 * 2 * L,
                       "flash_attention_bwd_dkv": 3 * 2 * L,
                       "flash_attention_fwd_wgmma": 0,
+                      "flash_attention_bwd_dq_wgmma": 0,
                       "flash_attention_bwd_dkv_wgmma": 0}
     torch.testing.assert_close(losses["cuda"], losses["cpu"], rtol=1e-4,
                                atol=0)

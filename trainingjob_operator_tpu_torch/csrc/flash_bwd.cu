@@ -1,5 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV, the
-// FlashAttention-2 scheme with probabilities recomputed from the saved LSE.
+// FlashAttention-2 scheme with probabilities recomputed from the saved LSE,
+// with f32 FMAs: the kernels of float32 at every head dim and of bf16 at
+// head dims 16 and 32.  bf16 at head dims 64 and 128 takes the tensor-core
+// kernels (flash_bwd_dq_wgmma.cu, flash_bwd_dkv_wgmma.cu).
 //
 // Replaces the TPU kernels trainingjob_operator_tpu/ops/flash_attention.py
 // _bwd_dq_kernel (tj_flash_bwd_dq) and _bwd_dkv_kernel (tj_flash_bwd_dkv),
@@ -17,13 +20,11 @@
 // guards handle a ragged last tile.
 //
 // Bound: dQ does 6 * D flops per visible (query, key) pair and dK/dV 8 * D,
-// against 2 bytes per element of q, k, v, dO and the gradients, so at the
-// training shapes (T = 4096, D = 128) both are bound by the tensor-core rate.
-// These first kernels do not reach it: like flash_fwd.cu they run the
-// products as f32 FMAs out of shared memory (no mma/wgmma, no TMA, no
-// pipelining); those are later work.  What they keep from the TPU design is
-// what keeps HBM traffic O(T * D): the [T, T] probabilities never leave the
-// block.
+// against 4 bytes per element of q, k, v, dO and the gradients in f32, so
+// at T = 1000 and D = 16 both are bound by the f32 rate.  Like flash_fwd.cu
+// they run the products as f32 FMAs out of shared memory (no mma/wgmma, no
+// TMA, no pipelining).  What they keep from the TPU design is what keeps HBM
+// traffic O(T * D): the [T, T] probabilities never leave the block.
 //
 // Design, both kernels 256 threads, 64 x 64 tiles staged in shared memory as
 // f32 (rows padded to D + 1 floats, against bank conflicts), thread (ty, tx)

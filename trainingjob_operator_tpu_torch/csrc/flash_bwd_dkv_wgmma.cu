@@ -5,7 +5,7 @@
 // Replaces, for those inputs, the TPU kernel
 // trainingjob_operator_tpu/ops/flash_attention.py _bwd_dkv_kernel (launched
 // by _flash_backward); flash_bwd.cu's tj_flash_bwd_dkv keeps f32 and bf16 at
-// head dims 16 and 32, and tj_flash_bwd_dq every dQ.  Same math:
+// head dims 16 and 32 (dQ: flash_bwd_dq_wgmma.cu).  Same math:
 //   z  = (q . k) * scale
 //   p  = exp(z - lse) where the mask lets (row, col) through, else exactly 0
 //   dp = dO . v

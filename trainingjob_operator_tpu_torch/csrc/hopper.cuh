@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the tensor-core flash kernels
-// (flash_fwd_wgmma.cu, flash_bwd_dkv_wgmma.cu), as inline PTX for sm_90a:
+// (flash_fwd_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_wgmma.cu), as
+// inline PTX for sm_90a:
 // mbarriers, TMA tile loads through 4-D tensor maps with 128-byte swizzle,
 // shared-memory matrix descriptors and warpgroup matrix multiplies (wgmma).
 //
@@ -12,7 +13,8 @@
 // - K-major (the reduction dim contiguous: Q, K in Q.K^T): 8-row groups 1024
 //   bytes apart (SBO); the k-th 16-element step starts 32 k bytes further
 //   into the row, the next panel at the next panel's base.
-// - MN-major (the output dim contiguous: V in P.V, dO and Q in dV and dK):
+// - MN-major (the output dim contiguous: V in P.V, K in dQ, dO and Q in dV
+//   and dK):
 //   the reduction rows advance 16 rows = 2048 bytes a step, 8-row groups
 //   are 1024 bytes apart (SBO), 64-column panels rows * 128 bytes apart
 //   (LBO); the instruction's transpose bit says so.

@@ -5,93 +5,153 @@
 // eps) * scale, statistics in f32, output in the input dtype.
 //
 // Bound: device-memory bytes.  Each row is read and written once (plus the
-// [D] f32 scale); there are 4 flops per element.  At a 7B serve tick the
-// input is 4 x 4096 bf16 (about 80 KB in and out), so the time is launch
-// latency, not bandwidth.
-//
-// Design: one block per row, any row count (no divisor-of-rows block choice
-// as on the TPU).  Loads and stores are 16 bytes per thread (8 bf16 or 4
-// f32), so D must be a multiple of 8.  The sum of squares is reduced by warp
-// shuffles, then across warps through shared memory.  The second pass
-// re-reads the row, which the first pass left in L1/L2.
+// [D] f32 scale, which every row shares and L2 keeps); there are 4 flops per
+// element.  At the training step's [4096, 4096] bf16 that is 64 MB, 20 us on
+// an H100 SXM; a 7B serve tick's [4, 4096] is 64 KB, so there the time is
+// launch latency, not bandwidth.  What the design does about it:
+// - each row is read from device memory once and stays in registers between
+//   the sum of squares and the write (16-byte loads and stores: 8 bf16 or 4
+//   f32; D must be a multiple of 8).  A row is held by a team of one warp
+//   (up to 512 16-byte vectors: D <= 4096 bf16 or 2048 f32) or of 2, 4 or 8
+//   warps, kPer vectors a thread;
+// - the sum of squares is reduced by warp shuffles; a team of several warps
+//   adds its warps' partial sums after one barrier;
+// - the scale is read as 16-byte vectors beside the x vector it multiplies;
+// - rows per CTA (a CTA holds 1 to 8 warps) are chosen so that a large
+//   input gets CTAs of 8 warps and a small one spreads its rows over SMs
+//   (ops/fused.py rmsnorm_plan).
 #include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxWarps = 8;
 
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float partial[kThreads / 32];
-  __shared__ float total;
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) partial[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < kThreads / 32 ? partial[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1)
-      w += __shfl_xor_sync(0xffffffffu, w, off);
-    if (lane == 0) total = w;
-  }
-  __syncthreads();
-  return total;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int kPer>
+__global__ void __launch_bounds__(32 * kMaxWarps)
     rmsnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                       T* __restrict__ out, int d, float eps) {
+                       T* __restrict__ out, int rows, int d, int team,
+                       float eps) {
   constexpr int kVec = 16 / sizeof(T);
+  __shared__ float partial[kMaxWarps];
+  const int team_threads = 32 * team;
+  const int row = blockIdx.x * (blockDim.x / team_threads) +
+                  threadIdx.x / team_threads;
+  const int tid = threadIdx.x % team_threads;  // within the row's team
   const int nvec = d / kVec;
+  const bool live = row < rows;
   const uint4* xrow =
-      reinterpret_cast<const uint4*>(x + static_cast<size_t>(blockIdx.x) * d);
-  uint4* orow = reinterpret_cast<uint4*>(out + static_cast<size_t>(blockIdx.x) * d);
+      reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * d);
 
+  uint4 v[kPer];
   float ss = 0.f;
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    const uint4 raw = xrow[i];
-    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      const float f = tj::to_f32(e[j]);
+  for (int j = 0; j < kPer; ++j) {
+    const int i = tid + j * team_threads;
+    v[j] = live && i < nvec ? xrow[i] : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const T* e = reinterpret_cast<const T*>(&v[j]);
+#pragma unroll
+    for (int m = 0; m < kVec; ++m) {
+      const float f = tj::to_f32(e[m]);
       ss = fmaf(f, f, ss);
     }
   }
-  const float r = rsqrtf(block_sum(ss) / static_cast<float>(d) + eps);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if (team > 1) {  // uniform over the launch: every thread reaches the barrier
+    const int warp = threadIdx.x / 32;
+    if (threadIdx.x % 32 == 0) partial[warp] = ss;
+    __syncthreads();
+    const int first = warp / team * team;
+    ss = 0.f;
+    for (int w = 0; w < team; ++w) ss += partial[first + w];
+  }
+  if (!live) return;
+  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
 
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    const uint4 raw = xrow[i];
-    const T* e = reinterpret_cast<const T*>(&raw);
+  uint4* orow = reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * d);
+  const float4* scale4 = reinterpret_cast<const float4*>(scale);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = tid + j * team_threads;
+    if (i >= nvec) continue;
+    float sc[kVec];
+#pragma unroll
+    for (int m = 0; m < kVec / 4; ++m) {
+      const float4 s4 = scale4[i * (kVec / 4) + m];
+      sc[4 * m] = s4.x;
+      sc[4 * m + 1] = s4.y;
+      sc[4 * m + 2] = s4.z;
+      sc[4 * m + 3] = s4.w;
+    }
+    const T* e = reinterpret_cast<const T*>(&v[j]);
     uint4 packed;
     T* o = reinterpret_cast<T*>(&packed);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      o[j] = tj::from_f32<T>(tj::to_f32(e[j]) * r * scale[i * kVec + j]);
+    for (int m = 0; m < kVec; ++m)
+      o[m] = tj::from_f32<T>(tj::to_f32(e[m]) * r * sc[m]);
     orow[i] = packed;
   }
 }
 
-}  // namespace
-
-// x and out: contiguous [rows, d], 16-byte aligned; scale: contiguous [d] f32.
-extern "C" int tj_rmsnorm_fwd(const void* x, const void* scale, void* out,
-                              int rows, int d, float eps, int dtype,
-                              void* stream) {
-  if (rows <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  if (dtype == tj::kBF16) {
-    rmsnorm_fwd_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), sc,
-        static_cast<__nv_bfloat16*>(out), d, eps);
-  } else if (dtype == tj::kF32) {
-    rmsnorm_fwd_kernel<float><<<rows, kThreads, 0, s>>>(
-        static_cast<const float*>(x), sc, static_cast<float*>(out), d, eps);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int launch(const void* x, const float* scale, void* out, int rows, int d,
+           float eps, int per, int team, int cta_warps, cudaStream_t s) {
+  const dim3 grid((rows + cta_warps / team - 1) / (cta_warps / team));
+  const dim3 block(32 * cta_warps);
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  switch (per) {
+    case 1:
+      rmsnorm_fwd_kernel<T, 1><<<grid, block, 0, s>>>(xt, scale, ot, rows, d,
+                                                      team, eps);
+      break;
+    case 2:
+      rmsnorm_fwd_kernel<T, 2><<<grid, block, 0, s>>>(xt, scale, ot, rows, d,
+                                                      team, eps);
+      break;
+    case 4:
+      rmsnorm_fwd_kernel<T, 4><<<grid, block, 0, s>>>(xt, scale, ot, rows, d,
+                                                      team, eps);
+      break;
+    case 8:
+      rmsnorm_fwd_kernel<T, 8><<<grid, block, 0, s>>>(xt, scale, ot, rows, d,
+                                                      team, eps);
+      break;
+    case 16:
+      rmsnorm_fwd_kernel<T, 16><<<grid, block, 0, s>>>(xt, scale, ot, rows,
+                                                       d, team, eps);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x and out: contiguous [rows, d], 16-byte aligned; scale: contiguous [d] f32,
+// 16-byte aligned.  per (16-byte vectors a thread), team (warps a row) and
+// cta_warps (warps a CTA, a multiple of team) come from ops/fused.py
+// rmsnorm_plan.
+extern "C" int tj_rmsnorm_fwd(const void* x, const void* scale, void* out,
+                              int rows, int d, float eps, int dtype, int per,
+                              int team, int cta_warps, void* stream) {
+  if (rows <= 0) return 0;
+  const int vec = dtype == tj::kBF16 ? 8 : 4;
+  if ((dtype != tj::kBF16 && dtype != tj::kF32) || d % vec != 0 ||
+      team < 1 || cta_warps > kMaxWarps || cta_warps % team != 0 ||
+      d / vec > 32 * team * per)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  if (dtype == tj::kBF16)
+    return launch<__nv_bfloat16>(x, sc, out, rows, d, eps, per, team,
+                                 cta_warps, s);
+  return launch<float>(x, sc, out, rows, d, eps, per, team, cta_warps, s);
 }

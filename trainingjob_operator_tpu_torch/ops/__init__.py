@@ -20,13 +20,14 @@ from trainingjob_operator_tpu_torch.ops.fused import rmsnorm  # noqa: F401
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``.  The flash
-    forward and dK/dV count every launch; their ``_wgmma`` keys count the
-    tensor-core kernels' share of them."""
+    forward, dQ and dK/dV count every launch; their ``_wgmma`` keys count
+    the tensor-core kernels' share of them."""
     return {"rmsnorm_fwd": _fused.launches,
             "flash_attention_fwd": _flash.launches,
             "flash_attention_bwd_dq": _flash.bwd_dq_launches,
             "flash_attention_bwd_dkv": _flash.bwd_dkv_launches,
             "flash_attention_fwd_wgmma": _flash.wgmma_fwd_launches,
+            "flash_attention_bwd_dq_wgmma": _flash.wgmma_dq_launches,
             "flash_attention_bwd_dkv_wgmma": _flash.wgmma_dkv_launches}
 
 
@@ -36,4 +37,5 @@ def reset_launch_counts() -> None:
     _flash.bwd_dq_launches = 0
     _flash.bwd_dkv_launches = 0
     _flash.wgmma_fwd_launches = 0
+    _flash.wgmma_dq_launches = 0
     _flash.wgmma_dkv_launches = 0

@@ -38,8 +38,8 @@ _G = ctypes.POINTER(ctypes.c_longlong)
 
 #: C signatures of the entry points (csrc/*.cu ``extern "C"``).
 SIGNATURES = {
-    # x, scale, out, rows, d, eps, dtype, stream
-    "tj_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _P],
+    # x, scale, out, rows, d, eps, dtype, per, team, cta_warps, stream
+    "tj_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P],
     # q, k, v, o, lse, B, T, Hq, Hkv, D, dtype, causal, window, scale,
     # then (b, t, h, d) strides of q, k, v and o, then the stream
     "tj_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F]
@@ -55,6 +55,11 @@ SIGNATURES = {
     # then the stream
     "tj_flash_fwd_wgmma": [_P] * 5 + [_I] * 7 + [_F] + [_G] * 3 + [_L] * 4
     + [_P],
+    # q, k, v, dout, lse, delta, dq, B, T, Hq, Hkv, D, causal, window,
+    # scale, the geometry of q, k, v and dout, the strides of dq, then the
+    # stream
+    "tj_flash_bwd_dq_wgmma": [_P] * 7 + [_I] * 7 + [_F] + [_G] * 4
+    + [_L] * 4 + [_P],
     # q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv, D, causal, window,
     # scale, the geometry of q, k, v and dout, the strides of dk and dv,
     # then the stream

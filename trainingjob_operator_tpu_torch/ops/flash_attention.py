@@ -1,14 +1,15 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd_wgmma.cu`` and
-``csrc/flash_fwd.cu`` (forward), ``csrc/flash_bwd_dkv_wgmma.cu`` and
-``csrc/flash_bwd.cu`` (dQ and dK/dV), each beside its plain version.
+``csrc/flash_fwd.cu`` (forward), ``csrc/flash_bwd_dq_wgmma.cu``,
+``csrc/flash_bwd_dkv_wgmma.cu`` and ``csrc/flash_bwd.cu`` (dQ and dK/dV),
+each beside its plain version.
 
 Which kernel a CUDA tensor takes goes by dtype and head dim alone
 (``kernel_route``): bf16 at head dims 64 and 128 (``llama2_7b``,
-``base_124m``) runs the forward and dK/dV on the tensor cores (wgmma, TMA,
-an mbarrier ring); float32 at every head dim, bf16 at 16 and 32 (the tiny
-config) and every dQ run the f32-FMA kernels.  The launch plans (kernel,
+``base_124m``) runs the forward, dQ and dK/dV on the tensor cores (wgmma,
+TMA, an mbarrier ring); float32 at every head dim and bf16 at 16 and 32
+(the tiny config) run the f32-FMA kernels.  The launch plans (kernel,
 grid, tile order, tensor maps, copies) are plain Python (``fwd_plan``,
-``dkv_plan``) so that the CPU tests check them.
+``dq_plan``, ``dkv_plan``) so that the CPU tests check them.
 
 Port of the JAX package's ``ops/flash_attention.py``.  The public
 functions take ``[B, T, H, D]`` tensors (k/v may have fewer heads: GQA)
@@ -35,11 +36,13 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 #: break the f32 parity of the training tests at 1e-4, and head dims 16 and
 #: 32 are only the tiny config's, so those stay on the f32-FMA kernels.
 TC_HEAD_DIMS = (64, 128)
-#: Tile rows of the tensor-core forward, (query rows per CTA, keys per K/V
-#: tile), and of dK/dV, (KV rows per CTA, query rows per step).  They set
-#: the TMA boxes and the grids and are the constants kBM, kBN of
-#: csrc/flash_fwd_wgmma.cu and kBN, kBM of csrc/flash_bwd_dkv_wgmma.cu.
+#: Tile rows of the tensor-core forward and dQ, (query rows per CTA, keys
+#: per K/V tile), and of dK/dV, (KV rows per CTA, query rows per step).
+#: They set the TMA boxes and the grids and are the constants kBM, kBN of
+#: csrc/flash_fwd_wgmma.cu and csrc/flash_bwd_dq_wgmma.cu and kBN, kBM of
+#: csrc/flash_bwd_dkv_wgmma.cu.
 TC_FWD_TILE = (64, 64)
+TC_DQ_TILE = (64, 64)
 TC_DKV_TILE = (64, 64)
 #: Columns of a TMA box: 64 bf16 are the 128 bytes the 128-byte swizzle
 #: takes; a head dim of 128 loads as two boxes.
@@ -47,13 +50,14 @@ TMA_BOX_D = 64
 #: Row tile of the f32-FMA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu).
 FMA_TILE = 64
 
-#: Kernel launches since the last reset (chip_smoke.py reads them):
-#: forward and dK/dV count every launch, whichever kernel ran; the
+#: Kernel launches since the last reset (chip_smoke.py reads them): the
+#: forward, dQ and dK/dV count every launch, whichever kernel ran; the
 #: ``wgmma_*`` counters count the tensor-core kernels' share.
 launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
 wgmma_fwd_launches = 0
+wgmma_dq_launches = 0
 wgmma_dkv_launches = 0
 
 
@@ -237,6 +241,26 @@ def fwd_plan(q, k, v) -> dict:
             "copies": copies, "maps": maps}
 
 
+def dq_plan(q, k, v, g) -> dict:
+    """As ``fwd_plan`` for dQ (``g`` is dO): one CTA per (query tile, b,
+    head), the last query tile (under a causal mask the heaviest) first;
+    the f32-FMA kernel issues its tiles in ascending order."""
+    B, T, H, D = q.shape
+    kernel = kernel_route(q.dtype, D)
+    if kernel == "fma":
+        n = _tiles(T, FMA_TILE)
+        return {"kernel": kernel, "grid": (n, B * H),
+                "tile_order": list(range(n))}
+    rows_q, rows_kv = TC_DQ_TILE
+    n = _tiles(T, rows_q)
+    copies, maps = _maps({"q": q, "k": k, "v": v, "g": g},
+                         {"q": rows_q, "k": rows_kv, "v": rows_kv,
+                          "g": rows_q})
+    return {"kernel": kernel, "grid": (B * H, n),
+            "tile_order": [n - 1 - y for y in range(n)],
+            "copies": copies, "maps": maps}
+
+
 def dkv_plan(q, k, v, g) -> dict:
     """As ``fwd_plan`` for dK/dV (``g`` is dO): one CTA per (KV tile, b, KV
     head), KV tiles in ascending order (tile 0 sees every query tile under
@@ -368,20 +392,38 @@ def _check_bwd_args(q, k, v, g, lse, delta) -> None:
 
 def flash_bwd_dq_kernel(q, k, v, g, lse, delta, *, causal: bool,
                         scale: float, window: int) -> torch.Tensor:
-    """Launch ``tj_flash_bwd_dq`` (``csrc/flash_bwd.cu``) on CUDA tensors:
-    dq [B, T, H, D] in q's dtype.  q, k, v and dO are passed by stride."""
-    global bwd_dq_launches
+    """Launch the dQ kernel ``dq_plan`` names on CUDA tensors: dq [B, T,
+    H, D] in q's dtype.  ``tj_flash_bwd_dq`` (``csrc/flash_bwd.cu``) reads
+    q, k, v and dO by stride, ``tj_flash_bwd_dq_wgmma``
+    (``csrc/flash_bwd_dq_wgmma.cu``) through tensor maps, after an
+    explicit contiguous copy of any of them that is not ``tma_ready``."""
+    global bwd_dq_launches, wgmma_dq_launches
     _check_bwd_args(q, k, v, g, lse, delta)
     B, T, H, D = q.shape
+    Hkv = k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    code = _build.library().tj_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        B, T, H, k.shape[2], D, _build.dtype_code(q),
-        int(causal), int(window), float(scale),
-        *q.stride(), *k.stride(), *v.stride(), *g.stride(), *dq.stride(),
-        _build.stream_of(q))
-    _build.check(code, "flash_attention_bwd_dq")
+    lib = _build.library()
+    plan = dq_plan(q, k, v, g)
+    if plan["kernel"] == "wgmma":
+        q, k, v, g = (tma_operand(x) for x in (q, k, v, g))
+        maps = plan["maps"]
+        code = lib.tj_flash_bwd_dq_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, T, H, Hkv, D, int(causal), int(window), float(scale),
+            *(_build.geometry(maps[n]) for n in ("q", "k", "v", "g")),
+            *dq.stride(), _build.stream_of(q))
+        _build.check(code, "flash_attention_bwd_dq_wgmma")
+        wgmma_dq_launches += 1
+    else:
+        code = lib.tj_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, T, H, Hkv, D, _build.dtype_code(q),
+            int(causal), int(window), float(scale),
+            *q.stride(), *k.stride(), *v.stride(), *g.stride(),
+            *dq.stride(), _build.stream_of(q))
+        _build.check(code, "flash_attention_bwd_dq")
     bwd_dq_launches += 1
     return dq
 

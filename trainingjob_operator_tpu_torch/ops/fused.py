@@ -16,6 +16,14 @@ from trainingjob_operator_tpu_torch.ops import _build
 
 #: Kernel launches since the last reset (chip_smoke.py reads it).
 launches = 0
+#: 16-byte vectors a thread of ``csrc/rmsnorm.cu`` may hold (its largest
+#: ``kPer``) and warps a CTA may hold (``kMaxWarps``): a row of at most
+#: 16 x 32 x 8 vectors (32768 bf16, 16384 f32) fits in a CTA's registers.
+MAX_PER_THREAD = 16
+MAX_CTA_WARPS = 8
+#: A grid of fewer CTAs than this (two for each of an H100's 132 SMs)
+#: gets smaller CTAs, so that few rows still spread over the SMs.
+MIN_CTAS = 264
 
 
 def rmsnorm_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -25,6 +33,31 @@ def rmsnorm_reference(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def rmsnorm_plan(rows: int, d: int, element_size: int) -> dict:
+    """How ``csrc/rmsnorm.cu`` holds rows of ``d`` elements: each row in
+    the registers of a team of ``team`` warps, ``per`` 16-byte vectors a
+    thread (powers of two, the fewest that hold the row), ``cta_warps``
+    warps a CTA (8, halved while the grid would have fewer than
+    ``MIN_CTAS`` CTAs, never below a team), and the grid.  Plain Python:
+    the wrapper launches by it and the CPU tests check it."""
+    nvec = d * element_size // 16
+    team = _pow2_at_least(-(-nvec // (32 * MAX_PER_THREAD)))
+    if team > MAX_CTA_WARPS:
+        most = 32 * MAX_PER_THREAD * MAX_CTA_WARPS * 16 // element_size
+        raise ValueError(f"rmsnorm kernel holds rows of at most {most} "
+                         f"elements of this dtype, got {d}")
+    per = _pow2_at_least(-(-nvec // (32 * team)))
+    cta_warps = MAX_CTA_WARPS
+    while cta_warps > team and -(-rows * team // cta_warps) < MIN_CTAS:
+        cta_warps //= 2
+    return {"team": team, "per": per, "cta_warps": cta_warps,
+            "grid": -(-rows * team // cta_warps)}
 
 
 def check_kernel_args(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -41,9 +74,11 @@ def check_kernel_args(x: torch.Tensor, scale: torch.Tensor) -> None:
     if x.data_ptr() % 16:
         raise ValueError("rmsnorm kernel needs a 16-byte aligned input")
     if (scale.dtype != torch.float32 or scale.shape != (d,)
-            or not scale.is_contiguous() or scale.device != x.device):
-        raise ValueError(f"rmsnorm kernel needs a contiguous float32 scale "
-                         f"of shape ({d},) on {x.device}")
+            or not scale.is_contiguous() or scale.device != x.device
+            or scale.data_ptr() % 16):
+        raise ValueError(f"rmsnorm kernel needs a contiguous, 16-byte "
+                         f"aligned float32 scale of shape ({d},) on "
+                         f"{x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         # Called bare, the kernel would return a tensor cut off from the
         # graph; ``rmsnorm`` runs it inside its autograd Function.
@@ -59,10 +94,11 @@ def rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor,
     out = torch.empty_like(x)
     d = x.shape[-1]
     rows = x.numel() // d if d else 0
+    plan = rmsnorm_plan(rows, d, x.element_size())
     lib = _build.library()
     code = lib.tj_rmsnorm_fwd(
         x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d, float(eps),
-        _build.dtype_code(x),
+        _build.dtype_code(x), plan["per"], plan["team"], plan["cta_warps"],
         _build.stream_of(x))
     _build.check(code, "rmsnorm_fwd")
     launches += 1
