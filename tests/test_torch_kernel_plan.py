@@ -2,15 +2,18 @@
 
 Which kernel a call takes, its grid and tile order, when an input is copied
 and the tensor maps the tensor-core kernels are built from are decided in
-plain Python (``ops/flash_attention.py`` ``fwd_plan`` and ``dkv_plan``), so
-they are checked here; the kernels themselves run only on the card
-(``tests/test_torch_cuda.py``).
+plain Python (``ops/flash_attention.py`` ``fwd_plan``, ``dq_plan`` and
+``dkv_plan``; ``ops/fused.py`` ``rmsnorm_plan``), so they are checked here;
+the kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
 import importlib
 
 import pytest
 import torch
+
+from trainingjob_operator_tpu_torch import ops
+from trainingjob_operator_tpu_torch.ops import _build, fused
 
 flash = importlib.import_module(
     "trainingjob_operator_tpu_torch.ops.flash_attention")
@@ -35,6 +38,7 @@ def test_the_kernel_goes_by_dtype_and_head_dim(dtype, D, kernel):
     assert flash.kernel_route(dtype, D) == kernel
     q, k, v = _qkv(1, 40, 4, 2, D, dtype)
     assert flash.fwd_plan(q, k, v)["kernel"] == kernel
+    assert flash.dq_plan(q, k, v, q)["kernel"] == kernel
     assert flash.dkv_plan(q, k, v, q)["kernel"] == kernel
 
 
@@ -61,11 +65,25 @@ def test_dkv_grid_issues_the_heaviest_kv_tiles_first(T, tiles):
     assert plan["tile_order"] == list(range(tiles))
 
 
+@pytest.mark.parametrize("T,tiles", [(64, 1), (130, 3), (1000, 16),
+                                     (4096, 64)])
+def test_dq_grid_issues_the_heaviest_query_tiles_first(T, tiles):
+    q, k, v = _qkv(2, T, 32, 8, 128)
+    plan = flash.dq_plan(q, k, v, q)
+    # One CTA per (64-row query tile, b, query head): every (b, h) in x,
+    # the last query tile (the most KV tiles under a causal mask) first.
+    assert flash.TC_DQ_TILE == (64, 64)
+    assert plan["grid"] == (2 * 32, tiles)
+    assert plan["tile_order"] == list(range(tiles - 1, -1, -1))
+
+
 def test_fma_grids_are_those_of_the_f32_kernels():
     q, k, v = _qkv(2, 130, 4, 2, 16, torch.float32)
     assert flash.fwd_plan(q, k, v)["grid"] == (3, 8)
+    assert flash.dq_plan(q, k, v, q)["grid"] == (3, 8)
     assert flash.dkv_plan(q, k, v, q)["grid"] == (3, 4)
     assert flash.fwd_plan(q, k, v)["tile_order"] == [0, 1, 2]
+    assert flash.dq_plan(q, k, v, q)["tile_order"] == [0, 1, 2]
 
 
 def test_tensor_maps_of_contiguous_inputs():
@@ -87,6 +105,10 @@ def test_tensor_maps_of_contiguous_inputs():
     for name in ("q", "k", "v", "g"):
         assert dkv["maps"][name]["box"] == (64, 64, 1, 1)
     assert dkv["maps"]["g"]["strides"] == plan["maps"]["q"]["strides"]
+    dq = flash.dq_plan(q, k, v, q)
+    assert dq["copies"] == {"q": False, "k": False, "v": False, "g": False}
+    assert {n: dq["maps"][n] for n in ("q", "k", "v")} == plan["maps"]
+    assert dq["maps"]["g"] == plan["maps"]["q"]
 
 
 def test_a_bhtd_view_is_read_in_place():
@@ -100,6 +122,9 @@ def test_a_bhtd_view_is_read_in_place():
     assert plan["maps"]["q"]["strides"] == (D * 2, T * D * 2, H * T * D * 2)
     assert plan["maps"]["q"]["dims"] == (D, T, H, B)
     assert not flash.dkv_plan(q, k, v, q)["copies"]["g"]
+    dq = flash.dq_plan(q, k, v, q)
+    assert not any(dq["copies"].values())
+    assert dq["maps"]["g"]["strides"] == (D * 2, T * D * 2, H * T * D * 2)
 
 
 def test_a_view_with_d_stride_not_one_is_copied():
@@ -113,6 +138,12 @@ def test_a_view_with_d_stride_not_one_is_copied():
     assert plan["maps"]["k"]["strides"] == (H * D * 2, D * 2, T * H * D * 2)
     assert flash.dkv_plan(q, k, k, q)["copies"] == {
         "q": False, "k": True, "v": True, "g": False}
+    dq = flash.dq_plan(q, k, k, q)
+    assert dq["copies"] == {"q": False, "k": True, "v": True, "g": False}
+    assert dq["maps"]["k"]["strides"] == (H * D * 2, D * 2, T * H * D * 2)
+    # dO with d-stride 2 (every other column of a wider tensor) is copied.
+    g = torch.zeros(B, T, H, 2 * D, dtype=torch.bfloat16)[..., ::2]
+    assert flash.dq_plan(q, q, q, g)["copies"]["g"]
 
 
 def test_a_misaligned_view_is_copied():
@@ -123,6 +154,8 @@ def test_a_misaligned_view_is_copied():
     k = torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16)
     plan = flash.fwd_plan(q, k, k)
     assert plan["copies"] == {"q": True, "k": False, "v": False}
+    assert flash.dq_plan(q, k, k, q)["copies"] == {
+        "q": True, "k": False, "v": False, "g": True}
 
 
 def test_copies_for_the_kernel_are_fresh_and_contiguous():
@@ -136,7 +169,123 @@ def test_copies_for_the_kernel_are_fresh_and_contiguous():
     assert flash.tma_operand(k) is k
 
 
-def test_the_fma_plan_has_no_maps():
-    q, k, v = _qkv(1, 64, 4, 4, 32)
-    plan = flash.fwd_plan(q, k, v)
-    assert plan["kernel"] == "fma" and "maps" not in plan
+@pytest.mark.parametrize("plan_of", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 32),
+                                     (torch.float32, 128)])
+def test_the_fma_plan_has_no_maps(plan_of, dtype, D):
+    q, k, v = _qkv(1, 64, 4, 4, D, dtype)
+    plan = (flash.fwd_plan(q, k, v) if plan_of == "fwd"
+            else getattr(flash, f"{plan_of}_plan")(q, k, v, q))
+    assert plan["kernel"] == "fma"
+    assert "maps" not in plan and "copies" not in plan
+
+
+class _Lib:
+    """Stands in for the kernel library: records the entry points called
+    and returns ``code`` from each."""
+
+    def __init__(self, code=0, missing=()):
+        self.calls, self.code, self.missing = [], code, missing
+
+    def __getattr__(self, name):
+        if name in self.missing:
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append(name)
+            return self.code
+        return entry
+
+    def tj_error_string(self, code):
+        return b"stand-in failure"
+
+
+@pytest.fixture
+def lib(monkeypatch):
+    """Route the dQ wrapper's launches to a stand-in library (CPU tensors
+    have no CUDA stream; the wrapper's dispatch is what is under test)."""
+    fake = _Lib()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    ops.reset_launch_counts()
+    yield fake
+    ops.reset_launch_counts()
+
+
+def _dq_args(dtype, D, T=70):
+    q, k, v = _qkv(1, T, 4, 2, D, dtype)
+    lse = torch.zeros(1, 4, T)
+    return (q, k, v, q, lse, lse), dict(causal=True, scale=D ** -0.5,
+                                        window=0)
+
+
+@pytest.mark.parametrize("dtype,D,entry", [
+    (torch.bfloat16, 128, "tj_flash_bwd_dq_wgmma"),
+    (torch.bfloat16, 64, "tj_flash_bwd_dq_wgmma"),
+    (torch.bfloat16, 32, "tj_flash_bwd_dq"),
+    (torch.float32, 128, "tj_flash_bwd_dq"),
+])
+def test_dq_launches_the_entry_its_route_names(lib, dtype, D, entry):
+    args, opts = _dq_args(dtype, D)
+    with torch.no_grad():
+        dq = flash.flash_bwd_dq_kernel(*args, **opts)
+    assert lib.calls == [entry]
+    assert dq.shape == args[0].shape and dq.dtype == dtype
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dq_wgmma"] == int(
+        entry.endswith("wgmma"))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
+                                     (torch.float32, 16)])
+def test_a_failed_dq_launch_raises_with_no_fallback(lib, dtype, D):
+    lib.code = 700
+    args, opts = _dq_args(dtype, D)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        flash.flash_bwd_dq_kernel(*args, **opts)
+    # One entry tried, none after it, and nothing counted.
+    assert len(lib.calls) == 1
+    assert ops.launch_counts()["flash_attention_bwd_dq"] == 0
+
+
+def test_a_dq_kernel_missing_from_the_library_raises(lib):
+    lib.missing = ("tj_flash_bwd_dq_wgmma",)
+    args, opts = _dq_args(torch.bfloat16, 64)
+    with pytest.raises(AttributeError):
+        flash.flash_bwd_dq_kernel(*args, **opts)
+    assert lib.calls == []
+
+
+@pytest.mark.parametrize("rows,d,esize,plan", [
+    # Llama-2-7B rows (4096 bf16): 8 warps of 2 vectors a thread, one row a
+    # CTA, for a serve tick, a 2048-token prefill and the training
+    # microbatch alike.
+    (4, 4096, 2, {"team": 8, "per": 2, "cta_warps": 8, "grid": 4}),
+    (2048, 4096, 2, {"team": 8, "per": 2, "cta_warps": 8, "grid": 2048}),
+    (4096, 4096, 2, {"team": 8, "per": 2, "cta_warps": 8, "grid": 4096}),
+    # Wider rows keep 8 warps and hold more a thread.
+    (4, 4096, 4, {"team": 8, "per": 4, "cta_warps": 8, "grid": 4}),
+    (3, 8192, 2, {"team": 8, "per": 4, "cta_warps": 8, "grid": 3}),
+    (1, 32768, 2, {"team": 8, "per": 16, "cta_warps": 8, "grid": 1}),
+    # Narrow rows (base_124m's 768, the tiny config's 64, a head's 128):
+    # smaller teams, and CTAs of fewer warps while the grid is small.
+    (5, 768, 2, {"team": 2, "per": 2, "cta_warps": 2, "grid": 5}),
+    (13, 64, 4, {"team": 1, "per": 1, "cta_warps": 1, "grid": 13}),
+    (1000, 128, 2, {"team": 1, "per": 1, "cta_warps": 2, "grid": 500}),
+    (8192, 128, 2, {"team": 1, "per": 1, "cta_warps": 8, "grid": 1024}),
+])
+def test_rmsnorm_plan_holds_each_row_in_registers(rows, d, esize, plan):
+    got = fused.rmsnorm_plan(rows, d, esize)
+    assert got == plan
+    # Every 16-byte vector of a row has a thread, each CTA whole rows.
+    assert 32 * got["team"] * got["per"] >= d * esize // 16
+    assert got["cta_warps"] % got["team"] == 0
+    assert got["grid"] * got["cta_warps"] // got["team"] >= rows
+
+
+def test_rmsnorm_plan_refuses_a_row_wider_than_a_cta_holds():
+    with pytest.raises(ValueError, match="at most 32768"):
+        fused.rmsnorm_plan(1, 32768 + 8, 2)
+    with pytest.raises(ValueError, match="at most 16384"):
+        fused.rmsnorm_plan(1, 16384 + 8, 4)

@@ -127,8 +127,8 @@ def test_a_forward_error_just_above_the_l2_limit_fails():
     assert not check["ok"]
 
 
-# The tensor-core kernels round P (forward) and P and dz (dK/dV) to bf16
-# before the products that take them.  A plain emulation of those rounding
+# The tensor-core kernels round P (forward), dz (dQ) and P and dz (dK/dV)
+# to bf16 before the products that take them.  A plain emulation of those rounding
 # points stands in for a correct kernel: it must pass the limits
 # chip_smoke.py derives for them ("bfloat16_wgmma"), and the same faults as
 # above must still fail them.
@@ -166,6 +166,24 @@ def _emulate_dkv(q, k, v, do, lse, delta):
     return summed(dz, qt).to(k.dtype), summed(p, gt).to(v.dtype)
 
 
+def _emulate_dq(q, k, v, do, lse, delta):
+    """dQ with dz rounded to bf16 before dz . k, and the score products
+    summed in f64 (another order than the plain version's f32 sums, as the
+    tensor cores' order is)."""
+    scale = q.shape[-1] ** -0.5
+    qt, gt = (x.transpose(1, 2).double() for x in (q, do))
+    kt, vt = (flash._repeat_kv(x.transpose(1, 2), q.shape[2]).double()
+              for x in (k, v))
+    z = (torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale).float()
+    p = torch.exp(z - lse[..., None])
+    p = torch.where(flash._mask(z.shape[-1], True, 0, z.device), p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gt, vt).float()
+    dz = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", dz.to(torch.bfloat16).float(),
+                      kt.float())
+    return dq.transpose(1, 2).to(torch.bfloat16)
+
+
 @pytest.fixture(scope="module", params=[256, 2048])
 def tc_case(request):
     """Plain and emulated results of one causal bf16 case (GQA 4/2)."""
@@ -173,10 +191,12 @@ def tc_case(request):
     opts = dict(causal=True, scale=q.shape[-1] ** -0.5, window=0)
     out, lse = flash.flash_reference_with_lse(q, k, v, **opts)
     delta = flash.flash_delta(do, out)
+    dq = flash.flash_bwd_dq_reference(q, k, v, do, lse, delta, **opts)
     dk, dv = flash.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **opts)
     edk, edv = _emulate_dkv(q, k, v, do, lse, delta)
-    return {"out": (_emulate_fwd(q, k, v), out), "dk": (edk, dk),
-            "dv": (edv, dv)}
+    return {"out": (_emulate_fwd(q, k, v), out),
+            "dq": (_emulate_dq(q, k, v, do, lse, delta), dq),
+            "dk": (edk, dk), "dv": (edv, dv)}
 
 
 def test_the_forward_rounding_emulation_passes_the_tensor_core_limits(
@@ -195,6 +215,50 @@ def test_the_dkv_rounding_emulation_passes_the_tensor_core_limits(
     got, want = tc_case[name]
     check = smoke.grad_check(torch, got, want, "bfloat16_wgmma")
     assert check["ok"], check
+
+
+def test_the_dq_rounding_emulation_passes_the_tensor_core_limits(tc_case):
+    got, want = tc_case["dq"]
+    check = smoke.grad_check(torch, got, want, "bfloat16_wgmma",
+                             smoke.DQ_ATOL_FLOOR_RMS)
+    assert check["ok"], check
+    assert check["tol_used"] < 0.75 and check["rel_l2_err"] < 4e-3, check
+    # The bf16 dz is what the FMA kernels' tighter limits would refuse.
+    assert not smoke.grad_check(torch, got, want, "bfloat16",
+                                smoke.DQ_ATOL_FLOOR_RMS)["ok"]
+
+
+def test_only_the_first_query_row_needs_the_dq_atol_floor(tc_case):
+    # Row 0 of a causal head sees one key: its dQ is f32 noise on both
+    # sides, which a per-row atol cannot hold.  Every other row passes the
+    # per-row limit without the floor.
+    got, want = tc_case["dq"]
+    assert float(want[:, 0].float().abs().max()) < 1e-5
+    bare = smoke.grad_check(torch, got, want, "bfloat16_wgmma")
+    assert not bare["ok"] and bare["tol_used"] > 1
+    rest = smoke.grad_check(torch, got[:, 1:], want[:, 1:], "bfloat16_wgmma")
+    assert rest["ok"], rest
+
+
+def test_a_wrong_first_query_row_fails_the_dq_limits(tc_case):
+    # The floor is 1e-3 x the tensor's RMS: a first row off by 1% of the
+    # tensor's RMS fails.
+    got, want = tc_case["dq"]
+    got = got.clone()
+    got[:, 0] += 1e-2 * float(want.float().square().mean().sqrt())
+    check = smoke.grad_check(torch, got, want, "bfloat16_wgmma",
+                             smoke.DQ_ATOL_FLOOR_RMS)
+    assert not check["ok"] and check["tol_used"] > 1, check
+
+
+def test_a_dq_error_in_the_last_query_rows_fails_the_tensor_core_limits(
+        tc_case):
+    _, want = tc_case["dq"]
+    got = want.clone()
+    got[:, -64:] = (want[:, -64:].float() * 1.1).to(torch.bfloat16)
+    check = smoke.grad_check(torch, got, want, "bfloat16_wgmma",
+                             smoke.DQ_ATOL_FLOOR_RMS)
+    assert not check["ok"] and check["tol_used"] > 1, check
 
 
 @pytest.mark.parametrize("name", ["dk", "dv"])
@@ -216,14 +280,37 @@ def test_a_forward_error_in_the_last_query_rows_fails_the_tensor_core_limits(
     assert not check["ok"] and check["tol_used"] > 1, check
 
 
-@pytest.mark.parametrize("name", ["out", "dk", "dv"])
+@pytest.mark.parametrize("name", ["out", "dq", "dk", "dv"])
 def test_an_error_just_above_the_tensor_core_l2_limit_fails(tc_case, name):
     _, want = tc_case[name]
     limit = smoke.FWD_L2_RTOL["bfloat16_wgmma"]
     assert limit == smoke.BWD_L2_RTOL["bfloat16_wgmma"]
     got = want.float() * (1 + 1.25 * limit)
+    floor = smoke.DQ_ATOL_FLOOR_RMS if name == "dq" else 0.0
     check = smoke.close_check(torch, got, want, *smoke.FWD_TOL[
-        "bfloat16_wgmma"], limit, per_row=True)
+        "bfloat16_wgmma"], limit, per_row=True, atol_floor_rms=floor)
     assert check["tol_used"] <= 1, check
     assert limit < check["rel_l2_err"] < 1.5 * limit
     assert not check["ok"]
+
+
+@pytest.mark.parametrize("remat,L,micro", [("none", 2, 4), ("full", 2, 4),
+                                           ("none", 8, 2)])
+@pytest.mark.parametrize("tensor_cores", [False, True])
+def test_train_launches_counts_every_kernel(remat, L, micro, tensor_cores):
+    # The formula chip_smoke.py holds the training paths' counters to: a
+    # key for every counter, the tensor-core share of the forward, dQ and
+    # dK/dV all of their launches or none.
+    from trainingjob_operator_tpu_torch import ops
+
+    want = smoke.train_launches(L, remat, micro, tensor_cores)
+    assert set(want) == set(ops.launch_counts())
+    fwd = micro * L * (2 if remat == "full" else 1)
+    assert want["flash_attention_fwd"] == fwd
+    for key, n in (("flash_attention_fwd", fwd),
+                   ("flash_attention_bwd_dq", micro * L),
+                   ("flash_attention_bwd_dkv", micro * L)):
+        assert want[key] == n
+        assert want[f"{key}_wgmma"] == (n if tensor_cores else 0)
+    assert want["rmsnorm_fwd"] == micro * (
+        (4 if remat == "full" else 2) * L + 1)

@@ -11,9 +11,10 @@
 // launch latency, not bandwidth.  What the design does about it:
 // - each row is read from device memory once and stays in registers between
 //   the sum of squares and the write (16-byte loads and stores: 8 bf16 or 4
-//   f32; D must be a multiple of 8).  A row is held by a team of one warp
-//   (up to 512 16-byte vectors: D <= 4096 bf16 or 2048 f32) or of 2, 4 or 8
-//   warps, kPer vectors a thread;
+//   f32; D must be a multiple of 8).  A row is held by a team of 1 to 8
+//   warps, kPer vectors a thread: at D = 4096 bf16 8 warps of 2 vectors a
+//   thread, which ran faster on an H100 than fewer warps holding more (more
+//   warps in flight per SM, shorter per-thread chains at few rows);
 // - the sum of squares is reduced by warp shuffles; a team of several warps
 //   adds its warps' partial sums after one barrier;
 // - the scale is read as 16-byte vectors beside the x vector it multiplies;

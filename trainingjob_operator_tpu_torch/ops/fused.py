@@ -21,6 +21,11 @@ launches = 0
 #: 16 x 32 x 8 vectors (32768 bf16, 16384 f32) fits in a CTA's registers.
 MAX_PER_THREAD = 16
 MAX_CTA_WARPS = 8
+#: 16-byte vectors a thread holds where a team of at most MAX_CTA_WARPS
+#: warps can hold the row so: at D = 4096 bf16 a row spread over 8 warps,
+#: 2 vectors a thread, ran fastest of the plans tried on an H100, at 4 and
+#: at 2048-4096 rows (PERF.md, PR 4).
+PER_THREAD = 2
 #: A grid of fewer CTAs than this (two for each of an H100's 132 SMs)
 #: gets smaller CTAs, so that few rows still spread over the SMs.
 MIN_CTAS = 264
@@ -41,18 +46,20 @@ def _pow2_at_least(n: int) -> int:
 
 def rmsnorm_plan(rows: int, d: int, element_size: int) -> dict:
     """How ``csrc/rmsnorm.cu`` holds rows of ``d`` elements: each row in
-    the registers of a team of ``team`` warps, ``per`` 16-byte vectors a
-    thread (powers of two, the fewest that hold the row), ``cta_warps``
-    warps a CTA (8, halved while the grid would have fewer than
-    ``MIN_CTAS`` CTAs, never below a team), and the grid.  Plain Python:
-    the wrapper launches by it and the CPU tests check it."""
+    the registers of a team of ``team`` warps (the fewest, at most 8, that
+    hold it at ``PER_THREAD`` 16-byte vectors a thread), ``per`` vectors a
+    thread (the fewest that then hold the row; both powers of two),
+    ``cta_warps`` warps a CTA (8, halved while the grid would have fewer
+    than ``MIN_CTAS`` CTAs, never below a team), and the grid.  Plain
+    Python: the wrapper launches by it and the CPU tests check it."""
     nvec = d * element_size // 16
-    team = _pow2_at_least(-(-nvec // (32 * MAX_PER_THREAD)))
-    if team > MAX_CTA_WARPS:
+    team = min(MAX_CTA_WARPS,
+               _pow2_at_least(-(-nvec // (32 * PER_THREAD))))
+    per = _pow2_at_least(-(-nvec // (32 * team)))
+    if per > MAX_PER_THREAD:
         most = 32 * MAX_PER_THREAD * MAX_CTA_WARPS * 16 // element_size
         raise ValueError(f"rmsnorm kernel holds rows of at most {most} "
                          f"elements of this dtype, got {d}")
-    per = _pow2_at_least(-(-nvec // (32 * team)))
     cta_warps = MAX_CTA_WARPS
     while cta_warps > team and -(-rows * team // cta_warps) < MIN_CTAS:
         cta_warps //= 2
