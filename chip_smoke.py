@@ -69,8 +69,6 @@ import time
 #: Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
-#: The H100's L2 cache.
-L2_BYTES = 50e6
 
 EPS = 1e-5
 #: (rtol, atol) of the RMSNorm kernel vs its plain version on the card:
@@ -88,7 +86,8 @@ OUT_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
 #: The tensor-core kernels ("bfloat16_wgmma": csrc/flash_fwd_wgmma.cu,
 #: csrc/flash_bwd_dq_wgmma.cu, csrc/flash_bwd_dkv_wgmma.cu) also round P
 #: (forward; dz in dQ; P and dz in dK/dV) to bf16 before the products that
-#: take it, as FlashAttention-2/3 and SDPA's flash kernels do.  Rounding to nearest bf16 leaves a relative
+#: take it, as FlashAttention-2/3 and SDPA's flash kernels do.  Rounding to
+#: nearest bf16 leaves a relative
 #: error uniform within half a step, 2^-8 .. 2^-9 of the value: over
 #: mantissas spread evenly in log, an RMS of 2^-7 sqrt(0.541 / 12) = 1.7e-3.
 #: Each output entry sums many such rounded terms with random signs, so it
@@ -220,6 +219,10 @@ def check_rmsnorm(torch, F, fused):
     ``library_l2_ms`` replay one input, which stays in L2 where it fits,
     as a serve tick's freshly written hidden state does (and as earlier
     runs timed every case)."""
+    from trainingjob_operator_tpu_torch.workloads.rmsnorm_ab import (
+        copies_for,
+    )
+
     cases = []
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -236,8 +239,7 @@ def check_rmsnorm(torch, F, fused):
         if max_violation(got, want, rtol, atol) > 0:
             raise AssertionError(f"rmsnorm [{rows}, {d}] {dname}: "
                                  f"max abs err {err} over tolerance")
-        n_copies = max(2, math.ceil(2 * L2_BYTES / (x.numel()
-                                                   * x.element_size())))
+        n_copies = copies_for(x.numel() * x.element_size())
         xs = x.expand(n_copies, rows, d).contiguous()
         base = 200 if rows < 2048 else 50
         iters = n_copies * math.ceil(base / n_copies)

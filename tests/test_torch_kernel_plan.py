@@ -289,3 +289,15 @@ def test_rmsnorm_plan_refuses_a_row_wider_than_a_cta_holds():
         fused.rmsnorm_plan(1, 32768 + 8, 2)
     with pytest.raises(ValueError, match="at most 16384"):
         fused.rmsnorm_plan(1, 16384 + 8, 4)
+
+
+@pytest.mark.parametrize("rows,esize,copies", [(4, 2, 3052), (2048, 2, 6),
+                                               (4096, 2, 3), (2048, 4, 3)])
+def test_rmsnorm_timing_rotates_through_twice_the_l2(rows, esize, copies):
+    # The A/B script's ``rot`` timing: no call finds its input in L2.
+    from trainingjob_operator_tpu_torch.workloads import rmsnorm_ab
+
+    nbytes = rows * 4096 * esize
+    assert rmsnorm_ab.copies_for(nbytes) == copies
+    assert copies * nbytes >= 2 * rmsnorm_ab.L2_BYTES
+    assert (copies - 1) * nbytes < 2 * rmsnorm_ab.L2_BYTES or copies == 2

@@ -128,8 +128,8 @@ def test_a_forward_error_just_above_the_l2_limit_fails():
 
 
 # The tensor-core kernels round P (forward), dz (dQ) and P and dz (dK/dV)
-# to bf16 before the products that take them.  A plain emulation of those rounding
-# points stands in for a correct kernel: it must pass the limits
+# to bf16 before the products that take them.  A plain emulation of those
+# rounding points stands in for a correct kernel: it must pass the limits
 # chip_smoke.py derives for them ("bfloat16_wgmma"), and the same faults as
 # above must still fail them.
 

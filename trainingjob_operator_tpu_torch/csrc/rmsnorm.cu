@@ -31,9 +31,9 @@ constexpr int kMaxWarps = 8;
 
 template <typename T, int kPer>
 __global__ void __launch_bounds__(32 * kMaxWarps)
-    rmsnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                       T* __restrict__ out, int rows, int d, int team,
-                       float eps) {
+    rmsnorm_fwd_kernel(const T* __restrict__ x,
+                       const float* __restrict__ scale, T* __restrict__ out,
+                       int rows, int d, int team, float eps) {
   constexpr int kVec = 16 / sizeof(T);
   __shared__ float partial[kMaxWarps];
   const int team_threads = 32 * team;

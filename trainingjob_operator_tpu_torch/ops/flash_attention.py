@@ -219,21 +219,22 @@ def _maps(tensors: dict, box_rows: dict) -> Tuple[dict, dict]:
     return copies, maps
 
 
-def fwd_plan(q, k, v) -> dict:
-    """How the forward launches on [B, T, H, D] inputs: the kernel
-    (``kernel_route``), the grid, the query tiles in issue order and, for
-    the tensor-core kernel, which inputs are copied and their tensor maps.
-    Plain Python: the wrapper launches by it and the CPU tests check it."""
+def _query_tile_plan(q, operands: dict, tile) -> dict:
+    """The plan of a kernel with one CTA per (query tile, b, query head):
+    the kernel (``kernel_route``), the grid, the query tiles in issue order
+    and, for the tensor-core kernel, which ``operands`` are copied and their
+    tensor maps (q and dO boxes of ``tile[0]`` rows, k and v of
+    ``tile[1]``)."""
     B, T, H, D = q.shape
     kernel = kernel_route(q.dtype, D)
     if kernel == "fma":
         n = _tiles(T, FMA_TILE)
         return {"kernel": kernel, "grid": (n, B * H),
                 "tile_order": list(range(n))}
-    rows_q, rows_kv = TC_FWD_TILE
+    rows_q, rows_kv = tile
     n = _tiles(T, rows_q)
-    copies, maps = _maps({"q": q, "k": k, "v": v},
-                         {"q": rows_q, "k": rows_kv, "v": rows_kv})
+    copies, maps = _maps(operands, {name: rows_kv if name in ("k", "v")
+                                    else rows_q for name in operands})
     # Every (b, h) in x, the query tile in y from the last (under a causal
     # mask the heaviest) to the first.
     return {"kernel": kernel, "grid": (B * H, n),
@@ -241,24 +242,17 @@ def fwd_plan(q, k, v) -> dict:
             "copies": copies, "maps": maps}
 
 
+def fwd_plan(q, k, v) -> dict:
+    """How the forward launches on [B, T, H, D] inputs
+    (``_query_tile_plan``).  Plain Python: the wrapper launches by it and
+    the CPU tests check it."""
+    return _query_tile_plan(q, {"q": q, "k": k, "v": v}, TC_FWD_TILE)
+
+
 def dq_plan(q, k, v, g) -> dict:
-    """As ``fwd_plan`` for dQ (``g`` is dO): one CTA per (query tile, b,
-    head), the last query tile (under a causal mask the heaviest) first;
-    the f32-FMA kernel issues its tiles in ascending order."""
-    B, T, H, D = q.shape
-    kernel = kernel_route(q.dtype, D)
-    if kernel == "fma":
-        n = _tiles(T, FMA_TILE)
-        return {"kernel": kernel, "grid": (n, B * H),
-                "tile_order": list(range(n))}
-    rows_q, rows_kv = TC_DQ_TILE
-    n = _tiles(T, rows_q)
-    copies, maps = _maps({"q": q, "k": k, "v": v, "g": g},
-                         {"q": rows_q, "k": rows_kv, "v": rows_kv,
-                          "g": rows_q})
-    return {"kernel": kernel, "grid": (B * H, n),
-            "tile_order": [n - 1 - y for y in range(n)],
-            "copies": copies, "maps": maps}
+    """As ``fwd_plan`` for dQ (``g`` is dO)."""
+    return _query_tile_plan(q, {"q": q, "k": k, "v": v, "g": g},
+                            TC_DQ_TILE)
 
 
 def dkv_plan(q, k, v, g) -> dict:
