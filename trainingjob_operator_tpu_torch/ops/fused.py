@@ -24,7 +24,7 @@ MAX_CTA_WARPS = 8
 #: 16-byte vectors a thread holds where a team of at most MAX_CTA_WARPS
 #: warps can hold the row so: at D = 4096 bf16 a row spread over 8 warps,
 #: 2 vectors a thread, ran fastest of the plans tried on an H100, at 4 and
-#: at 2048-4096 rows (PERF.md, PR 4).
+#: at 2048-4096 rows (PERF.md §6).
 PER_THREAD = 2
 #: A grid of fewer CTAs than this (two for each of an H100's 132 SMs)
 #: gets smaller CTAs, so that few rows still spread over the SMs.
