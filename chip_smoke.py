@@ -129,7 +129,9 @@ BWD_L2_RTOL = {"bfloat16": 1e-3, "float32": 1e-5,
 #: next row).  A per-row atol would hold that noise to noise, so dQ's is
 #: never below BWD_TOL["bfloat16"]'s atol, what a kernel whose only error is
 #: the order of its f32 sums is held to.  Only such degenerate rows reach
-#: the floor; under BWD_TOL["bfloat16"] it equals the atol.
+#: the floor.  It floors a per-row atol only (ROW_ATOL, the tensor-core
+#: route): a tensor-wide atol, as the f32-FMA route's 1e-4 x RMS, stays as
+#: BWD_TOL gives it.
 DQ_ATOL_FLOOR_RMS = BWD_TOL["bfloat16"][1]
 
 
@@ -204,6 +206,12 @@ RMS_CASES = [(4, "bfloat16"), (4, "float32"), (16, "bfloat16"),
              (4096, "bfloat16")]
 
 
+def copies_for(nbytes: int, l2_bytes: int) -> int:
+    """Copies of an input of ``nbytes`` that together hold twice the L2
+    cache of ``l2_bytes``."""
+    return max(2, math.ceil(2 * l2_bytes / nbytes))
+
+
 def rotating(fn, xs):
     """``fn`` applied to the next of the inputs ``xs`` at each call."""
     turn = itertools.cycle(range(len(xs)))
@@ -219,12 +227,9 @@ def check_rmsnorm(torch, F, fused):
     ``library_l2_ms`` replay one input, which stays in L2 where it fits,
     as a serve tick's freshly written hidden state does (and as earlier
     runs timed every case)."""
-    from trainingjob_operator_tpu_torch.workloads.rmsnorm_ab import (
-        copies_for,
-    )
-
     cases = []
     dev = torch.device("cuda")
+    l2_bytes = torch.cuda.get_device_properties(dev).L2_cache_size
     gen = torch.Generator(device=dev).manual_seed(0)
     d = 4096
     for rows, dname in RMS_CASES:
@@ -239,7 +244,7 @@ def check_rmsnorm(torch, F, fused):
         if max_violation(got, want, rtol, atol) > 0:
             raise AssertionError(f"rmsnorm [{rows}, {d}] {dname}: "
                                  f"max abs err {err} over tolerance")
-        n_copies = copies_for(x.numel() * x.element_size())
+        n_copies = copies_for(x.numel() * x.element_size(), l2_bytes)
         xs = x.expand(n_copies, rows, d).contiguous()
         base = 200 if rows < 2048 else 50
         iters = n_copies * math.ceil(base / n_copies)
@@ -254,7 +259,7 @@ def check_rmsnorm(torch, F, fused):
             "shape": [rows, d], "dtype": dname,
             "plan": fused.rmsnorm_plan(rows, d, esize),
             "max_abs_err": err, "rtol": rtol, "atol": atol,
-            "rotation": n_copies, "iters": iters,
+            "rotation": n_copies, "l2_bytes": l2_bytes, "iters": iters,
             "ms": timed(lambda a: fused.rmsnorm_kernel(a, scale, EPS)),
             "eager_ms": timed(lambda a: fused.rmsnorm_kernel(a, scale, EPS),
                               eager_ms),
@@ -406,7 +411,8 @@ def limits(dname: str, kernel: str) -> str:
 def grad_check(torch, got, want, key, atol_floor_rms: float = 0.0) -> dict:
     """How far a backward kernel's gradient lies from the plain one, at
     BWD_TOL and BWD_L2_RTOL (dQ: with DQ_ATOL_FLOOR_RMS as
-    ``atol_floor_rms``); ``tol_used`` > 1 or ``ok`` false fails."""
+    ``atol_floor_rms``, which binds on the per-row limits only);
+    ``tol_used`` > 1 or ``ok`` false fails."""
     return close_check(torch, got, want, *BWD_TOL[key], BWD_L2_RTOL[key],
                        per_row=key in ROW_ATOL,
                        atol_floor_rms=atol_floor_rms)
@@ -422,16 +428,18 @@ def fwd_check(torch, got, want, key) -> dict:
 def close_check(torch, got, want, rtol, atol_rms, l2_rtol,
                 per_row: bool = False, atol_floor_rms: float = 0.0) -> dict:
     """|got - want| <= atol + rtol |want| elementwise, with atol =
-    ``atol_rms`` x the RMS of ``want`` (of each row over the last dim where
-    ``per_row``), but at least ``atol_floor_rms`` x the RMS of ``want``,
-    and the relative L2 error at most ``l2_rtol``.  Reports max|want|, the
-    RMS, the share of the elementwise tolerance used and the L2 error;
-    ``ok`` is the verdict."""
+    ``atol_rms`` x the RMS of ``want`` (where ``per_row``: of each row over
+    the last dim, but at least ``atol_floor_rms`` x the tensor's RMS; the
+    floor leaves a tensor-wide atol as it is), and the relative L2 error
+    at most ``l2_rtol``.  Reports max|want|, the RMS, the share of the
+    elementwise tolerance used and the L2 error; ``ok`` is the verdict."""
     g, w = got.float(), want.float()
     rms = float(w.square().mean().sqrt())
-    scale = w.square().mean(-1, keepdim=True).sqrt() if per_row else rms
-    atol, floor = atol_rms * scale, atol_floor_rms * rms
-    atol = atol.clamp_min(floor) if per_row else max(atol, floor)
+    if per_row:
+        atol = (atol_rms * w.square().mean(-1, keepdim=True).sqrt()
+                ).clamp_min(atol_floor_rms * rms)
+    else:
+        atol, atol_floor_rms = atol_rms * rms, 0.0
     diff = (g - w).abs()
     rel_l2 = float((g - w).norm() / w.norm())
     # Where want is exactly 0 in a row of zeros, only an exact 0 passes.

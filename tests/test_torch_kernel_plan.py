@@ -8,6 +8,8 @@ the kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
 import importlib
+import importlib.util
+from pathlib import Path
 
 import pytest
 import torch
@@ -261,27 +263,27 @@ def test_a_dq_kernel_missing_from_the_library_raises(lib):
     # Llama-2-7B rows (4096 bf16): 8 warps of 2 vectors a thread, one row a
     # CTA, for a serve tick, a 2048-token prefill and the training
     # microbatch alike.
-    (4, 4096, 2, {"team": 8, "per": 2, "cta_warps": 8, "grid": 4}),
-    (2048, 4096, 2, {"team": 8, "per": 2, "cta_warps": 8, "grid": 2048}),
-    (4096, 4096, 2, {"team": 8, "per": 2, "cta_warps": 8, "grid": 4096}),
+    (4, 4096, 2, {"team": 8, "per": 2, "grid": 4}),
+    (2048, 4096, 2, {"team": 8, "per": 2, "grid": 2048}),
+    (4096, 4096, 2, {"team": 8, "per": 2, "grid": 4096}),
     # Wider rows keep 8 warps and hold more a thread.
-    (4, 4096, 4, {"team": 8, "per": 4, "cta_warps": 8, "grid": 4}),
-    (3, 8192, 2, {"team": 8, "per": 4, "cta_warps": 8, "grid": 3}),
-    (1, 32768, 2, {"team": 8, "per": 16, "cta_warps": 8, "grid": 1}),
+    (4, 4096, 4, {"team": 8, "per": 4, "grid": 4}),
+    (3, 8192, 2, {"team": 8, "per": 4, "grid": 3}),
+    (1, 32768, 2, {"team": 8, "per": 16, "grid": 1}),
     # Narrow rows (base_124m's 768, the tiny config's 64, a head's 128):
-    # smaller teams, and CTAs of fewer warps while the grid is small.
-    (5, 768, 2, {"team": 2, "per": 2, "cta_warps": 2, "grid": 5}),
-    (13, 64, 4, {"team": 1, "per": 1, "cta_warps": 1, "grid": 13}),
-    (1000, 128, 2, {"team": 1, "per": 1, "cta_warps": 2, "grid": 500}),
-    (8192, 128, 2, {"team": 1, "per": 1, "cta_warps": 8, "grid": 1024}),
+    # smaller teams, several rows a CTA of 8 warps.
+    (5, 768, 2, {"team": 2, "per": 2, "grid": 2}),
+    (13, 64, 4, {"team": 1, "per": 1, "grid": 2}),
+    (1000, 128, 2, {"team": 1, "per": 1, "grid": 125}),
+    (8192, 128, 2, {"team": 1, "per": 1, "grid": 1024}),
 ])
 def test_rmsnorm_plan_holds_each_row_in_registers(rows, d, esize, plan):
     got = fused.rmsnorm_plan(rows, d, esize)
     assert got == plan
     # Every 16-byte vector of a row has a thread, each CTA whole rows.
     assert 32 * got["team"] * got["per"] >= d * esize // 16
-    assert got["cta_warps"] % got["team"] == 0
-    assert got["grid"] * got["cta_warps"] // got["team"] >= rows
+    assert fused.MAX_CTA_WARPS % got["team"] == 0
+    assert got["grid"] * fused.MAX_CTA_WARPS // got["team"] >= rows
 
 
 def test_rmsnorm_plan_refuses_a_row_wider_than_a_cta_holds():
@@ -291,13 +293,18 @@ def test_rmsnorm_plan_refuses_a_row_wider_than_a_cta_holds():
         fused.rmsnorm_plan(1, 16384 + 8, 4)
 
 
-@pytest.mark.parametrize("rows,esize,copies", [(4, 2, 3052), (2048, 2, 6),
-                                               (4096, 2, 3), (2048, 4, 3)])
+@pytest.mark.parametrize("rows,esize,copies", [(4, 2, 3200), (2048, 2, 7),
+                                               (4096, 2, 4), (2048, 4, 4)])
 def test_rmsnorm_timing_rotates_through_twice_the_l2(rows, esize, copies):
-    # The A/B script's ``rot`` timing: no call finds its input in L2.
-    from trainingjob_operator_tpu_torch.workloads import rmsnorm_ab
+    # chip_smoke.check_rmsnorm's rotation at an H100's 50 MiB L2: no call
+    # finds its input in L2.
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
 
+    l2_bytes = 50 * 2 ** 20
     nbytes = rows * 4096 * esize
-    assert rmsnorm_ab.copies_for(nbytes) == copies
-    assert copies * nbytes >= 2 * rmsnorm_ab.L2_BYTES
-    assert (copies - 1) * nbytes < 2 * rmsnorm_ab.L2_BYTES or copies == 2
+    assert smoke.copies_for(nbytes, l2_bytes) == copies
+    assert copies * nbytes >= 2 * l2_bytes
+    assert (copies - 1) * nbytes < 2 * l2_bytes or copies == 2

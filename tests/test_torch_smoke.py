@@ -251,6 +251,21 @@ def test_a_wrong_first_query_row_fails_the_dq_limits(tc_case):
     assert not check["ok"] and check["tol_used"] > 1, check
 
 
+def test_the_dq_atol_floor_leaves_the_f32_limit_as_it_is():
+    # The f32-FMA dQ is held to 1e-4 x the tensor's RMS: one entry off by
+    # 5e-4 x the RMS fails, though it lies under the tensor-core floor and
+    # inside the L2 limit.
+    want = _plain_grads(torch.float32)["dq"].contiguous()
+    rms = float(want.square().mean().sqrt())
+    got = want.clone()
+    got.view(-1)[want.abs().argmin()] += 5e-4 * rms
+    check = smoke.grad_check(torch, got, want, "float32",
+                             smoke.DQ_ATOL_FLOOR_RMS)
+    assert check["rel_l2_err"] <= smoke.BWD_L2_RTOL["float32"], check
+    assert check["atol_floor_rms"] == 0.0
+    assert not check["ok"] and check["tol_used"] > 1, check
+
+
 def test_a_dq_error_in_the_last_query_rows_fails_the_tensor_core_limits(
         tc_case):
     _, want = tc_case["dq"]

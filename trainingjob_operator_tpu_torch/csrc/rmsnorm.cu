@@ -18,9 +18,7 @@
 // - the sum of squares is reduced by warp shuffles; a team of several warps
 //   adds its warps' partial sums after one barrier;
 // - the scale is read as 16-byte vectors beside the x vector it multiplies;
-// - rows per CTA (a CTA holds 1 to 8 warps) are chosen so that a large
-//   input gets CTAs of 8 warps and a small one spreads its rows over SMs
-//   (ops/fused.py rmsnorm_plan).
+// - a CTA holds 8 warps, so 8 / team rows (ops/fused.py rmsnorm_plan).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -102,9 +100,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 
 template <typename T>
 int launch(const void* x, const float* scale, void* out, int rows, int d,
-           float eps, int per, int team, int cta_warps, cudaStream_t s) {
-  const dim3 grid((rows + cta_warps / team - 1) / (cta_warps / team));
-  const dim3 block(32 * cta_warps);
+           float eps, int per, int team, cudaStream_t s) {
+  const int rows_per_cta = kMaxWarps / team;
+  const dim3 grid((rows + rows_per_cta - 1) / rows_per_cta);
+  const dim3 block(32 * kMaxWarps);
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   switch (per) {
@@ -137,22 +136,19 @@ int launch(const void* x, const float* scale, void* out, int rows, int d,
 }  // namespace
 
 // x and out: contiguous [rows, d], 16-byte aligned; scale: contiguous [d] f32,
-// 16-byte aligned.  per (16-byte vectors a thread), team (warps a row) and
-// cta_warps (warps a CTA, a multiple of team) come from ops/fused.py
-// rmsnorm_plan.
+// 16-byte aligned.  per (16-byte vectors a thread) and team (warps a row, a
+// divisor of kMaxWarps) come from ops/fused.py rmsnorm_plan.
 extern "C" int tj_rmsnorm_fwd(const void* x, const void* scale, void* out,
                               int rows, int d, float eps, int dtype, int per,
-                              int team, int cta_warps, void* stream) {
+                              int team, void* stream) {
   if (rows <= 0) return 0;
   const int vec = dtype == tj::kBF16 ? 8 : 4;
   if ((dtype != tj::kBF16 && dtype != tj::kF32) || d % vec != 0 ||
-      team < 1 || cta_warps > kMaxWarps || cta_warps % team != 0 ||
-      d / vec > 32 * team * per)
+      team < 1 || kMaxWarps % team != 0 || d / vec > 32 * team * per)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   if (dtype == tj::kBF16)
-    return launch<__nv_bfloat16>(x, sc, out, rows, d, eps, per, team,
-                                 cta_warps, s);
-  return launch<float>(x, sc, out, rows, d, eps, per, team, cta_warps, s);
+    return launch<__nv_bfloat16>(x, sc, out, rows, d, eps, per, team, s);
+  return launch<float>(x, sc, out, rows, d, eps, per, team, s);
 }

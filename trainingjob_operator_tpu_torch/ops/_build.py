@@ -38,8 +38,8 @@ _G = ctypes.POINTER(ctypes.c_longlong)
 
 #: C signatures of the entry points (csrc/*.cu ``extern "C"``).
 SIGNATURES = {
-    # x, scale, out, rows, d, eps, dtype, per, team, cta_warps, stream
-    "tj_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P],
+    # x, scale, out, rows, d, eps, dtype, per, team, stream
+    "tj_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     # q, k, v, o, lse, B, T, Hq, Hkv, D, dtype, causal, window, scale,
     # then (b, t, h, d) strides of q, k, v and o, then the stream
     "tj_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F]

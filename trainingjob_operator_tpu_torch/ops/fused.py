@@ -17,18 +17,14 @@ from trainingjob_operator_tpu_torch.ops import _build
 #: Kernel launches since the last reset (chip_smoke.py reads it).
 launches = 0
 #: 16-byte vectors a thread of ``csrc/rmsnorm.cu`` may hold (its largest
-#: ``kPer``) and warps a CTA may hold (``kMaxWarps``): a row of at most
+#: ``kPer``) and warps a CTA holds (``kMaxWarps``): a row of at most
 #: 16 x 32 x 8 vectors (32768 bf16, 16384 f32) fits in a CTA's registers.
 MAX_PER_THREAD = 16
 MAX_CTA_WARPS = 8
 #: 16-byte vectors a thread holds where a team of at most MAX_CTA_WARPS
 #: warps can hold the row so: at D = 4096 bf16 a row spread over 8 warps,
-#: 2 vectors a thread, ran fastest of the plans tried on an H100, at 4 and
-#: at 2048-4096 rows (PERF.md §6).
+#: 2 vectors a thread (PERF.md §6).
 PER_THREAD = 2
-#: A grid of fewer CTAs than this (two for each of an H100's 132 SMs)
-#: gets smaller CTAs, so that few rows still spread over the SMs.
-MIN_CTAS = 264
 
 
 def rmsnorm_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -49,9 +45,9 @@ def rmsnorm_plan(rows: int, d: int, element_size: int) -> dict:
     the registers of a team of ``team`` warps (the fewest, at most 8, that
     hold it at ``PER_THREAD`` 16-byte vectors a thread), ``per`` vectors a
     thread (the fewest that then hold the row; both powers of two),
-    ``cta_warps`` warps a CTA (8, halved while the grid would have fewer
-    than ``MIN_CTAS`` CTAs, never below a team), and the grid.  Plain
-    Python: the wrapper launches by it and the CPU tests check it."""
+    and the grid of CTAs of MAX_CTA_WARPS warps (8 / ``team`` rows).
+    Plain Python: the wrapper launches by it and the CPU tests check
+    it."""
     nvec = d * element_size // 16
     team = min(MAX_CTA_WARPS,
                _pow2_at_least(-(-nvec // (32 * PER_THREAD))))
@@ -60,11 +56,8 @@ def rmsnorm_plan(rows: int, d: int, element_size: int) -> dict:
         most = 32 * MAX_PER_THREAD * MAX_CTA_WARPS * 16 // element_size
         raise ValueError(f"rmsnorm kernel holds rows of at most {most} "
                          f"elements of this dtype, got {d}")
-    cta_warps = MAX_CTA_WARPS
-    while cta_warps > team and -(-rows * team // cta_warps) < MIN_CTAS:
-        cta_warps //= 2
-    return {"team": team, "per": per, "cta_warps": cta_warps,
-            "grid": -(-rows * team // cta_warps)}
+    return {"team": team, "per": per,
+            "grid": -(-rows * team // MAX_CTA_WARPS)}
 
 
 def check_kernel_args(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -105,7 +98,7 @@ def rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor,
     lib = _build.library()
     code = lib.tj_rmsnorm_fwd(
         x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d, float(eps),
-        _build.dtype_code(x), plan["per"], plan["team"], plan["cta_warps"],
+        _build.dtype_code(x), plan["per"], plan["team"],
         _build.stream_of(x))
     _build.check(code, "rmsnorm_fwd")
     launches += 1

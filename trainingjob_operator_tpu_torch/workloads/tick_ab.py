@@ -92,45 +92,6 @@ def worker() -> dict:
     return result
 
 
-def compare_roots(script: str, roots) -> int:
-    """Run ``script --worker`` once per checkout in ``roots``, in order,
-    each importing the package from that checkout; print the ``nvidia-smi``
-    name and power limit, each worker's JSON line, and a summary line with
-    the median of each root's list-valued ``*_ms`` keys.  The A/B scripts
-    of this package share it."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    by_root = {}
-    for i, root in enumerate(roots):
-        root = os.path.abspath(root)
-        env = dict(os.environ, PYTHONPATH=root)
-        # -P: the script's own directory stays off sys.path, so the package
-        # comes from ``root``.
-        proc = subprocess.run(
-            [sys.executable, "-P", os.path.abspath(script), "--worker"],
-            cwd=root, env=env, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stderr)
-            raise SystemExit(f"worker for {root} exited "
-                             f"{proc.returncode}")
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        if not line["package"].startswith(root):
-            raise SystemExit(f"worker for {root} imported {line['package']}")
-        print(json.dumps({"order": i, "root": root, "nvidia_smi": smi,
-                          **line}), flush=True)
-        by_root.setdefault(root, []).append(line)
-    print(json.dumps({"summary": {
-        root: {key: statistics.median(ms for line in lines
-                                      for ms in line[key])
-               for key, value in lines[0].items()
-               if key.endswith("_ms") and isinstance(value, list)}
-        for root, lines in by_root.items()}, "nvidia_smi": smi}), flush=True)
-    return 0
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         "python3 -m trainingjob_operator_tpu_torch.workloads.tick_ab")
@@ -145,7 +106,37 @@ def main(argv=None) -> int:
         return 0
     if not args.root:
         parser.error("give at least one --root")
-    return compare_roots(__file__, args.root)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    by_root = {}
+    for i, root in enumerate(args.root):
+        root = os.path.abspath(root)
+        env = dict(os.environ, PYTHONPATH=root)
+        # -P: the script's own directory stays off sys.path, so the package
+        # comes from ``root``.
+        proc = subprocess.run(
+            [sys.executable, "-P", os.path.abspath(__file__), "--worker"],
+            cwd=root, env=env, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr)
+            raise SystemExit(f"worker for {root} exited "
+                             f"{proc.returncode}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not line["package"].startswith(root):
+            raise SystemExit(f"worker for {root} imported {line['package']}")
+        print(json.dumps({"order": i, "root": root, "nvidia_smi": smi,
+                          **line}), flush=True)
+        by_root.setdefault(root, []).append(line)
+    print(json.dumps({"summary": {
+        root: {f"{name}{kind}": statistics.median(
+            ms for line in lines for ms in line[f"{name}{kind}"])
+            for name in ("serve_step", "prefill_chunk", "decode_step")
+            for kind in ("_ms", "_cpu_ms")}
+        for root, lines in by_root.items()}, "nvidia_smi": smi}), flush=True)
+    return 0
 
 
 if __name__ == "__main__":
