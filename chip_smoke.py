@@ -27,13 +27,13 @@ script exits non-zero):
    gives for its prompt.
 4. tiny_train_equivalence: the tiny config in fp32 trains 5 steps of the
    trainer's step (``llama_elastic.make_step_fn``: AdamW, accum 2), with
-   remat "none" and "full", once through the kernels on
+   remat "none", "full", "attn" and "dots", once through the kernels on
    the card and once through the plain versions on the CPU from the same
    parameters and tokens: losses agree to 1e-4 relative at every step,
    the first step's gradients (before any update) to rtol = atol = 1e-4.
-   Launches per microbatch of a model of L layers: flash forward L (2 L
-   under remat "full", whose backward re-runs each layer), dQ and dK/dV
-   L, RMSNorm 2 L + 1 (4 L + 1 under "full").
+   Launches per microbatch of a model of L layers (``train_launches``):
+   flash forward L (2 L under "full" and "dots", whose backward re-runs
+   it), dQ and dK/dV L, RMSNorm 2 L + 1 (4 L + 1 under every remat).
 5. serve_7b: DecodeService on a seeded random-init Llama-2-7B (bf16, all 32
    layers); zero stale-KV violations, every request finished, and RMSNorm
    launched 65 times per decode step and per prefill chunk.
@@ -46,11 +46,35 @@ script exits non-zero):
    and the last below the first; per step 16 launches each of the flash
    forward, dQ and dK/dV and 34 of RMSNorm (the formula of phase 4), every
    flash forward, dQ and dK/dV launch on the tensor-core kernels.
+8. remat_7b_width: phase 7 under remat "attn" (16 flash forwards a step:
+   its (out, lse) are kept) and "dots" (32: the backward re-runs it), 66
+   RMSNorms a step each; losses within REMAT_LOSS_RTOL of phase 7's; step
+   time, tokens/s, peak memory and a step profile of each.
+9. resume_124m: the trainer's entry point (``python -m
+   ...workloads.llama_elastic``) at the 124M config (dim 768, 8 layers,
+   12 heads of 64, vocab 32000; seq 1024, batch 8), as its own processes
+   on one temporary checkpoint directory: an uninterrupted run of 12
+   steps; a run given SIGTERM after step 4, which must exit 143 with its
+   step committed; a restart from the resume image; a restart with
+   ``TRAININGJOB_CKPT_FAULT=resume_image`` (the image is corrupt, the step
+   directory restores) and one with ``=corrupt_latest`` (the previous
+   committed step restores), each training on.  Every run's per-step
+   losses come from its telemetry records, and the losses after each
+   resume equal the first run's at the same steps, bit for bit.  Then
+   ``generate`` on the checkpoint gives the greedy tokens of the saved
+   parameters.  Prints each run's ``recovery_timing`` (restore_s,
+   first_step_s) and ``ckpt_stall``.
+10. telemetry: a 6-step 124M run with telemetry, the step profiler and
+   the span trace on: one record per step, ``hbm_bytes`` on every second,
+   ``ckpt_ms`` on the record after the save, a ``torch.profiler`` Chrome
+   trace with device kernels, and the trainer's spans.
 
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
-dK/dV, with their launches on the paths driven (the 7B phases 5-7 run the
-bf16 tensor-core kernels, the tiny fp32 phases 3-4 the f32-FMA ones) and,
+dK/dV, with their launches on the paths driven (the 7B phases 5-8 and the
+124M trainer of phases 9-10 run the bf16 tensor-core kernels, the tiny
+fp32 phases 3-4 the f32-FMA ones; a trainer process reports its launches
+when it returns) and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when CUDA is unavailable or the package is not
 beside this script.
@@ -58,13 +82,21 @@ beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
+
+#: The checkout this script sits in (the trainer runs from it).
+ROOT = Path(__file__).resolve().parent
 
 #: Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -561,10 +593,14 @@ def train_launches(L: int, remat: str, micro_steps: int,
     """Kernel launches of ``micro_steps`` microbatch steps of an L-layer
     model (phase 4's formula); with ``tensor_cores`` (bf16 at head dim 64
     or 128) every flash forward, dQ and dK/dV launch is a tensor-core
-    one."""
-    full = remat == "full"
-    fwd = micro_steps * (2 if full else 1) * L
-    return {"rmsnorm_fwd": micro_steps * ((4 if full else 2) * L + 1),
+    one.  Each layer launches one flash forward, dQ and dK/dV and two
+    RMSNorms, plus the final RMSNorm.  Every remat policy re-runs a
+    layer's two RMSNorms in the backward; "full" and "dots" re-run its
+    flash forward too, while "attn" saves the forward's (out, lse)
+    (tests/test_torch_remat.py)."""
+    fwd = micro_steps * (2 if remat in ("full", "dots") else 1) * L
+    return {"rmsnorm_fwd":
+                micro_steps * ((2 if remat == "none" else 4) * L + 1),
             "flash_attention_fwd": fwd,
             "flash_attention_bwd_dq": micro_steps * L,
             "flash_attention_bwd_dkv": micro_steps * L,
@@ -590,7 +626,7 @@ def tiny_train_equivalence(torch, llama, llama_elastic, train):
                              generator=torch.Generator().manual_seed(10 + i))
                for i in range(steps)]
     result = {}
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "attn", "dots"):
         runs = {}
         for where in ("cpu", "cuda"):
             params = train.trainable_copy(init, where)
@@ -631,16 +667,17 @@ def tiny_train_equivalence(torch, llama, llama_elastic, train):
             "grad_rtol": 1e-4, "grad_atol": 1e-4, **result}
 
 
-def train_7b_width(torch, llama, llama_elastic):
+def train_7b_width(torch, llama, llama_elastic, remat=None):
     """The trainer's step at Llama-2-7B widths, 8 layers (see the module
-    docstring)."""
+    docstring), under ``remat`` (default: the trainer's default at 8
+    layers, "none")."""
     from trainingjob_operator_tpu_torch import ops
     from trainingjob_operator_tpu_torch.workloads import train
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=8)
     seq, batch, accum, steps, lr = 4096, 2, 2, 8, 3e-4
-    remat = train.default_remat(cfg.n_layers)
+    remat = remat or train.default_remat(cfg.n_layers)
     t0 = time.perf_counter()
     params = llama.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev, master=True)
@@ -664,10 +701,12 @@ def train_7b_width(torch, llama, llama_elastic):
     peak = torch.cuda.max_memory_allocated()
     per_step = train_launches(cfg.n_layers, remat, accum, tensor_cores=True)
     if counts != {k: n * steps for k, n in per_step.items()}:
-        raise AssertionError(f"7B-width train: launches {counts}, expected "
-                             f"{per_step} per step x {steps}")
+        raise AssertionError(f"7B-width train remat={remat}: launches "
+                             f"{counts}, expected {per_step} per step x "
+                             f"{steps}")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"7B-width train: losses {losses}")
+        raise AssertionError(f"7B-width train remat={remat}: losses "
+                             f"{losses}")
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     return {"n_layers": cfg.n_layers, "n_params": llama.num_params(cfg),
             "seq": seq, "global_batch": batch, "accum": accum,
@@ -678,6 +717,358 @@ def train_7b_width(torch, llama, llama_elastic):
             "launches_per_step": per_step, "launches": counts,
             "step_profile": profile_steps(torch, lambda: step_fn(tokens),
                                           n=2)}
+
+
+#: Relative agreement of the 7B-width losses under remat "attn" and "dots"
+#: with those under "none" (same parameters, same batch).  A policy changes
+#: only what the backward keeps or recomputes, and the recompute runs the
+#: same kernels on the same inputs, so the losses are expected bit for bit;
+#: 1e-3 is one bf16 rounding of an activation, the most a recompute in
+#: another order could move a loss, and is what the check allows.
+REMAT_LOSS_RTOL = 1e-3
+
+
+def remat_7b_width(torch, llama, llama_elastic, none):
+    """``train_7b_width`` under remat "attn" and "dots", each against the
+    "none" run ``none``: losses within REMAT_LOSS_RTOL, launches by
+    ``train_launches`` (every flash launch on the tensor cores)."""
+    out = {"loss_rtol": REMAT_LOSS_RTOL,
+           "none": {k: none[k] for k in ("step_s_median", "tokens_per_s",
+                                         "peak_mem_gib", "losses")}}
+    for remat in ("attn", "dots"):
+        torch.cuda.empty_cache()
+        run = train_7b_width(torch, llama, llama_elastic, remat=remat)
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(run["losses"], none["losses"]))
+        if not rel <= REMAT_LOSS_RTOL:
+            raise AssertionError(f"7B-width remat={remat}: losses "
+                                 f"{run['losses']} vs none "
+                                 f"{none['losses']}")
+        run["loss_max_rel_err_vs_none"] = rel
+        run["losses_equal_none"] = run["losses"] == none["losses"]
+        out[remat] = run
+    return out
+
+
+#: Runs the trainer's entry point (``python -m ...llama_elastic``) in its
+#: own process and, when ``main`` returns, prints the process's kernel
+#: launches (a preempted trainer leaves by ``os._exit`` and prints none).
+TRAINER = (
+    "import json, runpy, sys\n"
+    "from trainingjob_operator_tpu_torch import ops\n"
+    "try:\n"
+    "    runpy.run_module("
+    "'trainingjob_operator_tpu_torch.workloads.llama_elastic', "
+    "run_name='__main__')\n"
+    "except SystemExit as exc:\n"
+    "    rc = exc.code\n"
+    "print('launches ' + json.dumps(ops.launch_counts()), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+class LineSink:
+    """A telemetry sink: a TCP server on localhost that keeps every JSON
+    line it is sent (the trainer's ``TelemetryEmitter`` records)."""
+
+    def __init__(self):
+        import socketserver
+        import threading
+
+        records = self.records = []
+        lock = self.lock = threading.Lock()
+
+        class Handler(socketserver.StreamRequestHandler):
+            def handle(self):
+                for raw in self.rfile:
+                    try:
+                        rec = json.loads(raw)
+                    except ValueError:
+                        continue
+                    with lock:
+                        records.append(rec)
+
+        self.server = socketserver.ThreadingTCPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.server.daemon_threads = True
+        self.address = f"127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def steps(self, job: str, timeout: float = 10.0):
+        """The step records of ``job`` (call after its process ended:
+        what it sent is read once the count stays put for half a
+        second)."""
+        t0, seen, since = time.time(), -1, time.time()
+        while time.time() - t0 < timeout:
+            with self.lock:
+                got = [r for r in self.records
+                       if r.get("job") == f"smoke/{job}" and "step" in r]
+            if len(got) != seen:
+                seen, since = len(got), time.time()
+            elif time.time() - since > 0.5:
+                break
+            time.sleep(0.05)
+        return sorted(got, key=lambda r: r["step"])
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=5)
+
+
+def run_trainer(env, timeout: float, sigterm_after: str = ""):
+    """(exit code, output lines, launches or None, seconds) of one trainer
+    process; SIGTERM once a line starts with ``sigterm_after``; killed
+    after ``timeout`` seconds."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", TRAINER], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if sigterm_after and line.startswith(sigterm_after):
+                proc.send_signal(signal.SIGTERM)
+                sigterm_after = ""
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    launches = None
+    for line in lines:
+        if line.startswith("launches "):
+            launches = json.loads(line[len("launches "):])
+    return rc, lines, launches, time.perf_counter() - t0
+
+
+def line_fields(lines, prefix: str) -> dict:
+    """The ``key=value`` fields of the last line that starts with
+    ``prefix``."""
+    found = [ln for ln in lines if ln.startswith(prefix)]
+    if not found:
+        return {}
+    return dict(f.split("=", 1) for f in found[-1].split() if "=" in f)
+
+
+def expect(ok: bool, what: str, lines) -> None:
+    if not ok:
+        tail = "\n".join(lines[-30:])
+        raise AssertionError(f"{what}; output ended:\n{tail}")
+
+
+#: resume_124m: steps of the uninterrupted run, the checkpoint cadence, and
+#: the line after which the preempted run gets SIGTERM.
+RESUME_STEPS, RESUME_CKPT_EVERY = 12, 2
+SIGTERM_AFTER = "step 4/"
+
+
+def resume_124m(torch, llama, decode, train, sink, workdir):
+    """The trainer's entry point at the 124M config, as its own processes
+    on one checkpoint directory: uninterrupted, preempted by SIGTERM,
+    restarted, then restarted under each fault injection; then ``generate``
+    on the checkpoint.  Per-step losses come from the telemetry records
+    (the loss as the trainer read it, not rounded)."""
+    import os
+
+    from trainingjob_operator_tpu_torch import ops
+    from trainingjob_operator_tpu_torch.workloads import generate
+
+    N = RESUME_STEPS
+    runs, launches = {}, []
+
+    def env_of(job, ckpt, steps, **extra):
+        env = dict(os.environ)
+        env.update({"LLAMA_CONFIG": "124m", "LLAMA_SEQ": "1024",
+                    "LLAMA_BATCH": "8", "LLAMA_STEPS": str(steps),
+                    "LLAMA_CKPT_EVERY": str(RESUME_CKPT_EVERY),
+                    "TRAININGJOB_CHECKPOINT_DIR": ckpt,
+                    "TRAININGJOB_TELEMETRY_ADDR": sink.address,
+                    "TRAININGJOB_NAMESPACE": "smoke",
+                    "TRAININGJOB_NAME": job}, **extra)
+        return env
+
+    def run(job, ckpt, steps, sigterm_after="", **extra):
+        rc, lines, counts, secs = run_trainer(
+            env_of(job, ckpt, steps, **extra), 300, sigterm_after)
+        if counts is not None:
+            launches.append(counts)
+        recs = sink.steps(job)
+        runs[job] = {"rc": rc, "wall_s": secs,
+                     "recovery": line_fields(lines, "recovery_timing init_s"),
+                     "first_step_s": float(line_fields(
+                         lines, "recovery_timing first_step_s").get(
+                             "first_step_s", "nan")),
+                     "ckpt_stall": line_fields(lines, "ckpt_stall "),
+                     "resumed": [ln for ln in lines
+                                 if ln.startswith("resume")],
+                     "losses": {r["step"] + 1: r["loss"] for r in recs},
+                     "step_ms": [r["ms"] for r in recs]}
+        return rc, lines
+
+    ckpt = os.path.join(workdir, "resume")
+    plain = os.path.join(workdir, "plain")
+    rc, lines = run("uninterrupted", plain, N)
+    expect(rc == 0 and sorted(runs["uninterrupted"]["losses"])
+           == list(range(1, N + 1)), "uninterrupted run", lines)
+    want = runs["uninterrupted"]["losses"]
+
+    rc, lines = run("preempted", ckpt, N, sigterm_after=SIGTERM_AFTER)
+    expect(rc == 143 and lines[-1]
+           == "preemption checkpoint committed; exiting 143",
+           f"preempted run exited {rc}", lines)
+    k = train.committed_steps(os.path.join(ckpt, "llama"))[0]
+    expect(k >= 4, f"preempted run committed step {k}", lines)
+
+    def check_resumed(job, lines, step, last, first=None):
+        """Resumed at ``step`` and trained to ``last``, with the losses of
+        ``first`` at the same steps where given."""
+        got = runs[job]["losses"]
+        expect(f"resumed at step {step} (width 1)" in lines,
+               f"{job}: no resume at step {step}", lines)
+        expect(any(ln.startswith(f"step {step + 1}/{last} loss ")
+                   and ln.endswith("(first after resume)") for ln in lines),
+               f"{job}: no first step after resume", lines)
+        expect(sorted(got) == list(range(step + 1, last + 1)),
+               f"{job}: steps {sorted(got)}", lines)
+        expect(first is None or all(got[i] == first[i] for i in got),
+               f"{job}: losses {got} differ from {first}", lines)
+
+    rc, lines = run("restarted", ckpt, N)
+    expect(rc == 0, "restarted run", lines)
+    expect(f"resume: step {k} restored from resume image" in lines,
+           "restarted run did not take the resume image", lines)
+    check_resumed("restarted", lines, k, N, want)
+
+    rc, lines = run("fault_resume_image", ckpt, N + 2,
+                    TRAININGJOB_CKPT_FAULT="resume_image")
+    expect(rc == 0 and "resume: image fallback reason=corrupt (sha256 "
+           "mismatch); using the step directories" in lines,
+           "resume_image fault", lines)
+    check_resumed("fault_resume_image", lines, N, N + 2)
+    steps_now = train.committed_steps(os.path.join(ckpt, "llama"))
+    expect(steps_now[0] == N + 2 and len(steps_now) == 2,
+           f"committed steps {steps_now}", lines)
+    prev = steps_now[1]
+
+    rc, lines = run("fault_corrupt_latest", ckpt, N + 2,
+                    TRAININGJOB_CKPT_FAULT="corrupt_latest",
+                    TRAININGJOB_RESUME_OVERLAP="0")
+    expect(rc == 0 and f"resume: restored previous committed step {prev} "
+           f"(latest {N + 2} unreadable)" in lines
+           and any("reason=corrupt_latest" in ln for ln in lines),
+           "corrupt_latest fault", lines)
+    check_resumed("fault_corrupt_latest", lines, prev, N + 2,
+                  {**want, **runs["fault_resume_image"]["losses"]})
+
+    # generate on the checkpoint, against the same parameters read here.
+    cfg = llama.LlamaConfig.base_124m()
+    saved = torch.load(os.path.join(ckpt, "llama", str(N + 2), "params.pt"),
+                       weights_only=True)
+    params = train._onto(llama.init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(0), "cuda"), saved)
+    prompt = [1, 450, 4996, 17354, 1701, 29916]
+    gen_env = {"LLAMA_CONFIG": "124m", "GEN_STEPS": "24",
+               "GEN_PROMPT": ",".join(map(str, prompt)),
+               "TRAININGJOB_CHECKPOINT_DIR": ckpt}
+    old = {k_: os.environ.get(k_) for k_ in gen_env}
+    os.environ.update(gen_env)
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = generate.main([])
+    finally:
+        for k_, v in old.items():
+            if v is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = v
+    gen_launches = ops.launch_counts()
+    out = buf.getvalue().splitlines()
+    want_tokens = decode.generate(params, torch.tensor([prompt],
+                                                       device="cuda"),
+                                  cfg, steps=24)[0].tolist()
+    expect(rc == 0 and f"sampling from checkpoint at step {N + 2}" in out
+           and f"tokens: {','.join(map(str, want_tokens))}" in out,
+           f"generate from the checkpoint: {want_tokens}", out)
+    expect(gen_launches["flash_attention_fwd"]
+           == gen_launches["flash_attention_fwd_wgmma"] == cfg.n_layers,
+           f"generate launches {gen_launches}", out)
+    launches.append(gen_launches)
+    return {"config": "124m", "seq": 1024, "global_batch": 8,
+            "steps": N, "ckpt_every": RESUME_CKPT_EVERY,
+            "preempted_at_committed_step": k,
+            "fault_corrupt_latest_restored": prev, "runs": runs,
+            "bit_identical_after_resume": True,
+            "generate_tokens": want_tokens,
+            "launches": {key: sum(c[key] for c in launches)
+                         for key in launches[0]}}
+
+
+def telemetry(sink, workdir):
+    """A short trainer run with telemetry, the step profiler and the
+    workload trace on: a record per step, ``hbm_bytes`` every second step,
+    ``ckpt_ms`` on the record after each save, a Chrome trace of steps 2
+    and 3, and the span trace."""
+    import os
+
+    env = dict(os.environ)
+    steps = 6
+    env.update({"LLAMA_CONFIG": "124m", "LLAMA_SEQ": "1024",
+                "LLAMA_BATCH": "8", "LLAMA_STEPS": str(steps),
+                "LLAMA_CKPT_EVERY": "3",
+                "TRAININGJOB_CHECKPOINT_DIR": os.path.join(workdir, "tel"),
+                "TRAININGJOB_TELEMETRY_ADDR": sink.address,
+                "TRAININGJOB_NAMESPACE": "smoke",
+                "TRAININGJOB_NAME": "telemetry",
+                "TRAININGJOB_HBM_SAMPLE_STEPS": "2",
+                "TRAININGJOB_PROFILE_DIR": os.path.join(workdir, "prof"),
+                "TRAININGJOB_PROFILE_STEPS": "2:4",
+                "TRAININGJOB_TRACE_CONTEXT":
+                    "0123456789abcdef0123456789abcdef:0123456789abcdef",
+                "TRAININGJOB_TRACE_DIR": os.path.join(workdir, "trace")})
+    rc, lines, counts, secs = run_trainer(env, 300)
+    expect(rc == 0 and counts is not None, "telemetry run", lines)
+    recs = sink.steps("telemetry")
+    expect([r["step"] for r in recs] == list(range(steps)),
+           f"telemetry steps {[r['step'] for r in recs]}", lines)
+    hbm = {r["step"]: r.get("hbm_bytes") for r in recs}
+    ckpt = {r["step"]: r.get("ckpt_ms") for r in recs}
+    expect(all((hbm[i] is not None and hbm[i] > 0) == (i % 2 == 0)
+               for i in hbm), f"hbm_bytes {hbm}", lines)
+    expect([i for i in ckpt if ckpt[i] is not None] == [3],
+           f"ckpt_ms {ckpt}", lines)
+    expect(all(r["tokens"] == 8 * 1024 and r["flops"] > 0
+               and r["rtype"] == "worker" for r in recs),
+           f"record fields {recs[0]}", lines)
+    prof = [f for f in os.listdir(os.path.join(workdir, "prof"))
+            if f.endswith(".json")]
+    expect(len(prof) == 1, f"profile files {prof}", lines)
+    with open(os.path.join(workdir, "prof", prof[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    expect(len(kernels) > 0, "no device kernels in the profile", lines)
+    traces = os.listdir(os.path.join(workdir, "trace"))
+    with open(os.path.join(workdir, "trace", traces[0])) as f:
+        span_events = json.load(f)["traceEvents"]
+    spans = [e["name"] for e in span_events]
+    expect({"train.run", "train.compile", "train.step",
+            "train.checkpoint"} <= set(spans), f"spans {set(spans)}", lines)
+    return {"steps": steps, "records": recs, "wall_s": secs,
+            "profile_events": len(events), "profile_kernels": len(kernels),
+            "spans": {n: spans.count(n) for n in sorted(set(spans))},
+            "span_ms": {n: [e["dur"] / 1e3 for e in span_events
+                            if e["name"] == n] for n in sorted(set(spans))},
+            "launches": counts}
 
 
 def tiny_equivalence(torch, llama, decode, serve):
@@ -852,6 +1243,12 @@ def generate_7b(torch, decode, params, cfg):
                                                   cfg))}
 
 
+def tiny_train_runs(tiny_train):
+    """The per-policy results of ``tiny_train_equivalence``."""
+    return [v for v in tiny_train.values()
+            if isinstance(v, dict) and "launches" in v]
+
+
 def summary(name, route, source, replaces, cases, main_case, launches):
     row = dict(main_case)
     return {
@@ -937,12 +1334,31 @@ def main() -> int:
     trained = train_7b_width(torch, llama, llama_elastic)
     emit({"phase": "train_7b_width", "device": name, "nvidia_smi": smi,
           **trained})
+    remat = remat_7b_width(torch, llama, llama_elastic, trained)
+    emit({"phase": "remat_7b_width", "device": name, "nvidia_smi": smi,
+          **remat})
+    torch.cuda.empty_cache()
+
+    sink = LineSink()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        resumed = resume_124m(torch, llama, decode, train, sink, workdir)
+        emit({"phase": "resume_124m", "device": name, "nvidia_smi": smi,
+              **resumed})
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        tel = telemetry(sink, workdir)
+        emit({"phase": "telemetry", "device": name, "nvidia_smi": smi,
+              **tel})
+    finally:
+        sink.close()
+        shutil.rmtree(workdir, ignore_errors=True)
 
     # Launches on every path driven (each from zeroed counters): the 7B
-    # paths run the bf16 tensor-core kernels, the tiny fp32 ones the
-    # f32-FMA kernels.
-    paths = [served, generated, trained, tiny, tiny_train["none"],
-             tiny_train["full"]]
+    # paths and the 124M trainer run the bf16 tensor-core kernels, the tiny
+    # fp32 ones the f32-FMA kernels.
+    paths = [served, generated, trained, remat["attn"], remat["dots"],
+             resumed, tel, tiny, *tiny_train_runs(tiny_train)]
     launches = {k: sum(p["launches"][k] for p in paths)
                 for k in ops.launch_counts()}
     fma = {key: launches[key] - launches[f"{key}_wgmma"]

@@ -3,8 +3,9 @@
 - The port package and ``chip_smoke.py`` import neither ``jax`` nor the
   JAX package (AST scan), and every port module imports with ``jax``
   made unimportable.
-- The port's copy of the env names (serve knobs, checkpoint root, step
-  times) agrees with the JAX package's.
+- The port's copy of the env names (serve knobs, worker identity,
+  checkpoint, profiler, telemetry and trace knobs) agrees with the JAX
+  package's.
 - Without CUDA, the default-device constructors and entry points raise
   ``RuntimeError`` instead of running on the CPU.
 """
@@ -88,7 +89,15 @@ def test_serve_env_names_agree_with_the_jax_package():
     from trainingjob_operator_tpu_torch import constants as tconst
 
     names = [n for n in dir(tconst) if n.endswith("_ENV")]
-    assert len(names) == 9
+    assert len(names) == 28
+    # The training slice's checkpoint, preemption, profiler and telemetry
+    # names.
+    assert {"CKPT_SNAPSHOT_ENV", "CKPT_FAULT_ENV", "RESUME_OVERLAP_ENV",
+            "PROFILE_DIR_ENV", "PROFILE_STEPS_ENV", "HBM_SAMPLE_STEPS_ENV",
+            "TELEMETRY_ADDR_ENV", "JOB_NAMESPACE_ENV", "JOB_NAME_ENV",
+            "REPLICA_NAME_ENV", "REPLICA_INDEX_ENV", "MODEL_FLOPS_ENV",
+            "PEAK_FLOPS_ENV", "TRACE_CONTEXT_ENV", "TRACE_DIR_ENV",
+            "REPLICA_RESTART_COUNT_ENV", "ELASTIC_REPLICAS_ENV"} <= set(names)
     for name in names:
         assert getattr(tconst, name) == getattr(jconst, name)
 
@@ -110,8 +119,9 @@ def tiny_cpu_params():
 class TestCudaByDefault:
     def test_constructors_raise(self, no_cuda, tiny_cpu_params):
         from trainingjob_operator_tpu_torch import resolve_device
+        from trainingjob_operator_tpu_torch.data.loader import Prefetcher
         from trainingjob_operator_tpu_torch.models import decode, llama
-        from trainingjob_operator_tpu_torch.workloads import serve
+        from trainingjob_operator_tpu_torch.workloads import serve, train
 
         cfg, params = tiny_cpu_params
         calls = [
@@ -120,6 +130,12 @@ class TestCudaByDefault:
             lambda: llama.params_from_numpy({}, cfg),
             lambda: decode.init_cache(cfg, 1, 8),
             lambda: serve.DecodeService(params, cfg),
+            lambda: Prefetcher(torch.tensor, 0, 1),
+            lambda: train.StepProfiler(),
+            lambda: train.adamw_state_from_numpy(()),
+            lambda: train.run_elastic_loop(
+                step_fn=None, batch_at=None, state=None, params={},
+                opt_state={}, steps=1, start_step=0, ckpt_every=1),
         ]
         for call in calls:
             with pytest.raises(RuntimeError, match="CUDA is not available"):

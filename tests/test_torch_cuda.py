@@ -296,3 +296,64 @@ def test_tiny_serve_equals_generate_through_the_kernels(dev):
     assert req.tokens == want[0].tolist()
     counts = ops.launch_counts()
     assert counts["rmsnorm_fwd"] > 0 and counts["flash_attention_fwd"] == 2
+
+
+def test_a_prefetched_run_is_bit_identical_to_an_unprefetched_one(dev):
+    # The trainer's loop copies each pinned host batch to the card on the
+    # step's stream (data/loader.py); the same steps fed batch_at(i) on
+    # the card directly give the same bits.
+    base = llama.LlamaConfig.tiny()
+    cfg = llama.LlamaConfig(**{**base.__dict__, "dtype": "float32"})
+    init = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                             master=True)
+    batch_at, *_ = train.build_batch_sources(
+        prefix="NOPE", vocab_size=cfg.vocab_size, global_batch=4, seq=32,
+        synthetic_key=17, device="cpu")
+    runs = {}
+    for prefetch in (True, False):
+        params = train.trainable_copy(init, dev)
+        step = llama_elastic.make_step_fn(params, cfg, accum=2, lr=1e-3)
+        losses = []
+        if prefetch:
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                loss, _ = train.run_elastic_loop(
+                    step_fn=lambda t: losses.append(step(t)) or losses[-1],
+                    batch_at=batch_at, state=train.CheckpointState("", {}),
+                    params=params, opt_state=step.opt.state, steps=6,
+                    start_step=0, ckpt_every=100, device=dev)
+            side.synchronize()
+        else:
+            for i in range(6):
+                losses.append(step(batch_at(i).to(dev)))
+        runs[prefetch] = ([float(x) for x in losses],
+                          [p.detach().cpu() for p in
+                           train.tree_leaves(params)])
+    assert runs[True][0] == runs[False][0]
+    for a, b in zip(runs[True][1], runs[False][1]):
+        assert torch.equal(a, b)
+
+
+def test_the_snapshot_has_landed_when_save_returns(dev, tmp_path,
+                                                   monkeypatch):
+    # AdamW updates the parameters in place right after a save: the host
+    # copy must already hold the saved values.
+    x = torch.randn(4096, 1024, device=dev)
+    want = x.cpu()
+    st = train.CheckpointState(str(tmp_path), {})
+    seen = {}
+    real = train._write_step
+
+    def record(path, step, host_value, keep, cancel=None):
+        seen["host"] = host_value["params"]["x"].clone()
+        seen["pinned"] = host_value["params"]["x"].is_pinned()
+        real(path, step, host_value, keep, cancel)
+
+    monkeypatch.setattr(train, "_write_step", record)
+    st.save({"params": {"x": x}, "step": 1})
+    x.add_(1.0)  # what the next step does to the live buffer
+    st.finalize()
+    assert seen["pinned"]
+    assert torch.equal(seen["host"], want)
+    got = torch.load(tmp_path / "1" / "params.pt", weights_only=True)
+    assert torch.equal(got["x"], want)

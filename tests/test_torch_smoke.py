@@ -310,17 +310,21 @@ def test_an_error_just_above_the_tensor_core_l2_limit_fails(tc_case, name):
 
 
 @pytest.mark.parametrize("remat,L,micro", [("none", 2, 4), ("full", 2, 4),
-                                           ("none", 8, 2)])
+                                           ("none", 8, 2), ("attn", 8, 2),
+                                           ("dots", 8, 2)])
 @pytest.mark.parametrize("tensor_cores", [False, True])
 def test_train_launches_counts_every_kernel(remat, L, micro, tensor_cores):
     # The formula chip_smoke.py holds the training paths' counters to: a
     # key for every counter, the tensor-core share of the forward, dQ and
-    # dK/dV all of their launches or none.
+    # dK/dV all of their launches or none.  A layer's backward re-runs the
+    # flash forward under "full" and "dots" and saves it under "attn"
+    # (tests/test_torch_remat.py); every remat policy re-runs the layer's
+    # two RMSNorms.
     from trainingjob_operator_tpu_torch import ops
 
     want = smoke.train_launches(L, remat, micro, tensor_cores)
     assert set(want) == set(ops.launch_counts())
-    fwd = micro * L * (2 if remat == "full" else 1)
+    fwd = micro * L * (2 if remat in ("full", "dots") else 1)
     assert want["flash_attention_fwd"] == fwd
     for key, n in (("flash_attention_fwd", fwd),
                    ("flash_attention_bwd_dq", micro * L),
@@ -328,4 +332,4 @@ def test_train_launches_counts_every_kernel(remat, L, micro, tensor_cores):
         assert want[key] == n
         assert want[f"{key}_wgmma"] == (n if tensor_cores else 0)
     assert want["rmsnorm_fwd"] == micro * (
-        (4 if remat == "full" else 2) * L + 1)
+        (2 if remat == "none" else 4) * L + 1)

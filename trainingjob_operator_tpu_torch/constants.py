@@ -1,10 +1,10 @@
 """Environment names the ported serving and training paths read.
 
 Own copy of the names the JAX package declares in ``api/constants.py``
-(the ``TRAININGJOB_SERVE_*`` knobs, the checkpoint root and the per-step
-timing switch); the port imports nothing of that package, so the names are
-repeated here verbatim (tests/test_torch_boundaries.py checks they still
-agree).
+(the ``TRAININGJOB_SERVE_*`` knobs, the worker identity the operator
+injects, the checkpoint, profiling, telemetry and trace knobs); the port
+imports nothing of that package, so the names are repeated here verbatim
+(tests/test_torch_boundaries.py checks they still agree).
 """
 
 SERVE_SLOTS_ENV = "TRAININGJOB_SERVE_SLOTS"
@@ -15,8 +15,45 @@ SERVE_RATE_ENV = "TRAININGJOB_SERVE_RATE"
 SERVE_REQUESTS_ENV = "TRAININGJOB_SERVE_REQUESTS"
 SERVE_QUANT_ENV = "TRAININGJOB_SERVE_QUANT"
 
-# The trainer's checkpoint root; the port refuses it until checkpointing is
-# ported (ROADMAP.md queue 1 item 2b).
+# Worker identity, injected into every container by the operator.
+REPLICA_NAME_ENV = "TRAININGJOB_REPLICA_NAME"
+REPLICA_INDEX_ENV = "TRAININGJOB_REPLICA_INDEX"
+REPLICA_RESTART_COUNT_ENV = "TRAININGJOB_REPLICA_RESTARTCOUNT"
+JOB_NAME_ENV = "TRAININGJOB_NAME"
+JOB_NAMESPACE_ENV = "TRAININGJOB_NAMESPACE"
+ELASTIC_REPLICAS_ENV = "TRAININGJOB_ELASTIC_REPLICAS"
+
+# The trainer's checkpoint root (workloads/train.py CheckpointState).
 CHECKPOINT_DIR_ENV = "TRAININGJOB_CHECKPOINT_DIR"
+# "0" turns off the resume fast path: the resume image is not read.
+RESUME_OVERLAP_ENV = "TRAININGJOB_RESUME_OVERLAP"
+# "0" turns off snapshot-donate saves: every save writes on the step loop.
+CKPT_SNAPSHOT_ENV = "TRAININGJOB_CKPT_SNAPSHOT"
+# Checkpoint fault injection: "resume_image" flips a byte of the resume
+# image at read; "corrupt_latest" fails the restore of the newest step.
+CKPT_FAULT_ENV = "TRAININGJOB_CKPT_FAULT"
+# Seconds of waiting for a batch before the prefetcher warns (or, when its
+# thread is gone, raises).
+PREFETCH_STALL_ENV = "TRAININGJOB_PREFETCH_STALL_S"
+
+# Step profiler: a directory for a torch.profiler Chrome trace of the steps
+# "start:stop".
+PROFILE_DIR_ENV = "TRAININGJOB_PROFILE_DIR"
+PROFILE_STEPS_ENV = "TRAININGJOB_PROFILE_STEPS"
 # "1" -> log per-step wall time.
 STEP_TIMES_ENV = "TRAININGJOB_STEP_TIMES"
+# Device memory is sampled onto every N-th telemetry record; "0" disables.
+HBM_SAMPLE_STEPS_ENV = "TRAININGJOB_HBM_SAMPLE_STEPS"
+
+# Telemetry sink "host:port" (one JSON line per step), and the MFU
+# accounting overrides.
+TELEMETRY_ADDR_ENV = "TRAININGJOB_TELEMETRY_ADDR"
+MODEL_FLOPS_ENV = "TRAININGJOB_MODEL_FLOPS_PER_STEP"
+PEAK_FLOPS_ENV = "TRAININGJOB_PEAK_FLOPS"
+
+# Trace context "trace_id:span_id" handed down by the launcher (absent: the
+# workload tracer is off), and the directory its Chrome trace is written to.
+TRACE_CONTEXT_ENV = "TRAININGJOB_TRACE_CONTEXT"
+TRACE_DIR_ENV = "TRAININGJOB_TRACE_DIR"
+# "1" -> structured JSON log lines.
+LOG_JSON_ENV = "TRAININGJOB_LOG_JSON"

@@ -1,7 +1,7 @@
 """Llama-2 family for the PyTorch port: config, parameters, forward, loss.
 
 Port of the JAX package's ``models/llama.py`` (single-device path: no mesh,
-pipeline or sequence parallelism; remat "none" and "full").  The parameter
+pipeline or sequence parallelism; every remat policy).  The parameter
 tree keeps the JAX layout -- a nested dict with stacked ``[L, in, out]``
 layer leaves and ``x @ W`` products, under the same key paths as the JAX
 ``init_params`` -- so a JAX parameter tree carries across leaf for leaf
@@ -10,17 +10,27 @@ layer leaves and ``x @ W`` products, under the same key paths as the JAX
 
 from __future__ import annotations
 
+import importlib
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from trainingjob_operator_tpu_torch import resolve_device
 from trainingjob_operator_tpu_torch.ops import flash_attention, rmsnorm
+
+_flash = importlib.import_module(
+    "trainingjob_operator_tpu_torch.ops.flash_attention")
 
 #: Matmul-weight leaf names (stored in the compute dtype).
 MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -68,6 +78,11 @@ class LlamaConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+
+#: The configs by their ``LLAMA_CONFIG`` names.
+CONFIGS = {"7b": LlamaConfig.llama2_7b, "124m": LlamaConfig.base_124m,
+           "tiny": LlamaConfig.tiny}
 
 
 def _leaf_dtype(name: str, compute: torch.dtype,
@@ -177,37 +192,67 @@ def _rmsnorm(x, scale, eps):
     return rmsnorm(x, scale, eps)
 
 
-#: Remat policies of the JAX package that are not ported yet, with the
-#: ROADMAP.md item that ports them.
-UNPORTED_REMAT = {"attn": "queue 1 item 2a", "dots": "queue 1 item 2a"}
+#: The remat policies: "none" saves everything, "full" only each layer's
+#: inputs, "attn" also the flash forward's (out, lse), "dots" also the
+#: output of every matrix product without batch dims.
+REMAT_POLICIES = ("none", "full", "attn", "dots")
 
 
 def remat_policy(remat) -> str:
-    """``remat`` as "none" or "full" (bools and None as the JAX
-    ``_remat_wrap`` reads them); raises ``ValueError`` for "attn" and
-    "dots", which are not ported, and for an unknown policy."""
+    """``remat`` as one of ``REMAT_POLICIES`` (bools and None as the JAX
+    ``_remat_wrap`` reads them); raises ``ValueError`` for an unknown
+    policy."""
     if remat in (False, None, "none"):
         return "none"
     if remat in (True, "full"):
         return "full"
-    if remat in UNPORTED_REMAT:
-        raise ValueError(f"remat policy {remat!r} is not ported yet "
-                         f"(ROADMAP.md {UNPORTED_REMAT[remat]}); use 'none' "
-                         f"or 'full'")
+    if remat in ("attn", "dots"):
+        return remat
     raise ValueError(f"unknown remat policy {remat!r}; expected bool, "
                      f"'none', 'full', 'attn' or 'dots'")
 
 
+def _save_attn(ctx, func, *args, **kwargs):
+    """JAX ``save_only_these_names("attn_out")``: the flash forward's
+    operator, whose outputs (out, lse) are the residuals its backward
+    reads, is saved; everything else is recomputed (q, k and v too, as in
+    JAX, where they are unnamed residuals of the custom VJP)."""
+    if func is _flash.FWD_OP:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """JAX ``dots_with_no_batch_dims_saveable``: the outputs of matrix
+    products without batch dims (``aten.mm``: every ``x @ W`` of a layer)
+    are saved; batched products (``aten.bmm``) and the flash forward are
+    recomputed."""
+    if func is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVE = {"attn": _save_attn, "dots": _save_dots}
+
+
 def _remat_wrap(block, remat):
-    """The JAX ``_remat_wrap`` (``llama.py:164-191``) for "none" (save
-    everything) and "full" (save only the layer's inputs; the backward
-    re-runs the whole layer, its kernels included) through
-    ``torch.utils.checkpoint``."""
-    if remat_policy(remat) == "none":
+    """The JAX ``_remat_wrap`` (``llama.py:164-191``) through
+    ``torch.utils.checkpoint``: "none" returns ``block``; "full" saves only
+    the layer's inputs, and the backward re-runs the whole layer, its
+    kernels included; "attn" and "dots" re-run the layer but keep what
+    their policy saves (``_save_attn``, ``_save_dots``), by selective
+    checkpointing."""
+    policy = remat_policy(remat)
+    if policy == "none":
         return block
+    context_fn = noop_context_fn
+    if policy in _SAVE:
+        context_fn = partial(create_selective_checkpoint_contexts,
+                             _SAVE[policy])
 
     def wrapped(*args):
-        return checkpoint(block, *args, use_reentrant=False)
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=context_fn)
 
     return wrapped
 
@@ -273,7 +318,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     reuses this forward).  With ``return_hidden`` returns the final-norm
     hidden states [B, T, D] instead of logits.  The residual stream stays in
     the compute dtype; attention is the flash kernel on the card.  ``remat``
-    is "none" or "full" (``_remat_wrap``).
+    is one of ``REMAT_POLICIES`` (``_remat_wrap``).
     """
     c = config
     compute = c.compute_dtype

@@ -463,12 +463,35 @@ def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool,
     return dk, dv
 
 
-def _flash_forward(q, k, v, causal, scale, window):
+def _flash_fwd_impl(q, k, v, causal, scale, window):
+    """``tj_torch::flash_fwd``: (out, lse), the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
     if q.is_cuda:
         return flash_kernel_with_lse(q, k, v, causal=causal, scale=scale,
                                      window=window)
     return flash_reference_with_lse(q, k, v, causal=causal, scale=scale,
                                     window=window)
+
+
+# The forward as one operator of PyTorch's dispatcher.  The ctypes launch
+# is invisible to a ``TorchDispatchMode``; as an operator the forward is
+# one call a selective-checkpoint policy can save (``models/llama.py``
+# remat "attn"), and a saved result is returned without a launch, so it
+# adds nothing to the launch counts.  Defined through ``torch.library``'s
+# schema API: ``torch.library.custom_op`` wraps the same registration, but
+# its first call imports torch._dynamo, torch.distributed.tensor and sympy
+# (2.8 s of a first step on a CPU).
+_LIB = torch.library.Library("tj_torch", "DEF")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float scale, int window) -> (Tensor, Tensor)")
+_LIB.impl("flash_fwd", _flash_fwd_impl, "CompositeExplicitAutograd")
+
+#: The forward's operator, as a selective-checkpoint policy sees it.
+FWD_OP = torch.ops.tj_torch.flash_fwd.default
+
+
+def _flash_forward(q, k, v, causal, scale, window):
+    return FWD_OP(q, k, v, causal, scale, window)
 
 
 class _Flash(torch.autograd.Function):

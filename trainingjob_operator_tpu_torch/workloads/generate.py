@@ -1,14 +1,20 @@
 """Sample from a Llama model with the KV-cache decoder (offline generate).
 
-Port of the JAX package's ``workloads/generate.py``.  There is no
-checkpoint restore yet, so it samples from a seeded random init.
+Port of the JAX package's ``workloads/generate.py``: the parameters come
+from the trainer's checkpoint (``llama_elastic``'s ``<dir>/llama``, the
+same path contract, ``workloads/train.py`` ``CheckpointState``) without
+reading the optimizer moments, or from a seeded random init where there is
+no checkpoint.
 
 Run: ``python -m trainingjob_operator_tpu_torch.workloads.generate
-[--device cuda|cpu]``.  Env: LLAMA_CONFIG=tiny|7b, GEN_STEPS (default 32),
+[--device cuda|cpu]``.  Env: LLAMA_CONFIG=tiny|124m|7b (the trainer's
+configs; the JAX module reads tiny|7b), GEN_STEPS (default 32),
 GEN_BATCH (default 1), GEN_TEMPERATURE (0 = greedy), GEN_TOP_K /
 GEN_TOP_P (need a temperature), GEN_SEED, GEN_PROMPT (comma-separated
 token ids; default "1"), GEN_QUANT=1 (weight-only int8 decode),
-LLAMA_WINDOW (sliding-window span).  GEN_FAMILY=moe is not ported.
+LLAMA_WINDOW (sliding-window span; must match the trainer's),
+TRAININGJOB_CHECKPOINT_DIR (the trainer's checkpoint root).
+GEN_FAMILY=moe is not ported.
 """
 
 from __future__ import annotations
@@ -17,11 +23,29 @@ import argparse
 import dataclasses
 import os
 import sys
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from trainingjob_operator_tpu_torch import resolve_device
+
+
+def restore_params(cfg, device) -> Tuple[dict, int]:
+    """(params, step) of the trainer's newest checkpoint under
+    ``TRAININGJOB_CHECKPOINT_DIR`` (``<dir>/llama``), as the sampler's
+    leaves on ``device`` (compute dtype for the matmul weights), or a
+    seeded random init and step 0 where there is none.  The placeholder
+    skips the AdamW moments: twice the parameters, never read here."""
+    from trainingjob_operator_tpu_torch.models import llama
+    from trainingjob_operator_tpu_torch.workloads import rendezvous, train
+
+    state = train.CheckpointState.restore_or_init(
+        rendezvous.from_env(),
+        {"params": llama.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0), device),
+         "opt_state": train.ckpt_placeholder(), "step": 0},
+        subdir="llama")
+    return state.value["params"], int(state.value["step"])
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -36,9 +60,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     env = os.environ
     if env.get("GEN_FAMILY", "llama") != "llama":
         raise SystemExit("GEN_FAMILY: only 'llama' is ported")
-    cfg = (llama.LlamaConfig.llama2_7b()
-           if env.get("LLAMA_CONFIG", "tiny") == "7b"
-           else llama.LlamaConfig.tiny())
+    cfg = llama.CONFIGS.get(env.get("LLAMA_CONFIG", "tiny"),
+                            llama.LlamaConfig.tiny)()
     window = int(env.get("LLAMA_WINDOW", "0"))
     if window:
         cfg = dataclasses.replace(cfg, sliding_window=window)
@@ -51,10 +74,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     quantize = env.get("GEN_QUANT", "") in ("1", "true")
     prompt_ids = [int(x) for x in env.get("GEN_PROMPT", "1").split(",")]
 
-    print("warning: no checkpoint restore in the port yet, sampling from "
-          "random init", flush=True)
-    params = llama.init_params(
-        cfg, torch.Generator(device=device).manual_seed(0), device)
+    params, step = restore_params(cfg, device)
+    if step == 0:
+        print("warning: no checkpoint found, sampling from random init",
+              flush=True)
+    else:
+        print(f"sampling from checkpoint at step {step}", flush=True)
     prompt = torch.tensor([prompt_ids] * batch, dtype=torch.long,
                           device=device)
     generator = (torch.Generator(device=device).manual_seed(seed)

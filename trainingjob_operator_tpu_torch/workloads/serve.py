@@ -14,8 +14,11 @@ copies one [slots] vector of picks to the host.
 Run: ``python -m trainingjob_operator_tpu_torch.workloads.serve
 [--device cuda|cpu]``.  Env (``constants.py``): TRAININGJOB_SERVE_SLOTS,
 _MAX_LEN, _PREFILL_CHUNK, _QUEUE_CAP, _RATE, _REQUESTS (0 = serve
-forever), _QUANT, plus LLAMA_CONFIG=tiny|7b.  There is no checkpoint
-restore yet: ``main`` serves a seeded random init.
+forever), _QUANT, plus LLAMA_CONFIG=tiny|124m|7b and
+TRAININGJOB_CHECKPOINT_DIR: ``main`` serves the trainer's checkpoint (the
+parameters only, as ``generate``), or a seeded random init where there is
+none, and sends its serve and request records to
+TRAININGJOB_TELEMETRY_ADDR (``obs/telemetry.py``).
 """
 
 from __future__ import annotations
@@ -482,11 +485,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = resolve_device(args.device)
 
     from trainingjob_operator_tpu_torch.models import llama
+    from trainingjob_operator_tpu_torch.obs.telemetry import TelemetryEmitter
+    from trainingjob_operator_tpu_torch.workloads.generate import (
+        restore_params,
+    )
 
     env = os.environ
-    cfg = (llama.LlamaConfig.llama2_7b()
-           if env.get("LLAMA_CONFIG", "tiny") == "7b"
-           else llama.LlamaConfig.tiny())
+    cfg = llama.CONFIGS.get(env.get("LLAMA_CONFIG", "tiny"),
+                            llama.LlamaConfig.tiny)()
     slots = int(env.get(constants.SERVE_SLOTS_ENV, "4"))
     max_len = int(env.get(constants.SERVE_MAX_LEN_ENV, "0")) or None
     chunk = int(env.get(constants.SERVE_PREFILL_CHUNK_ENV, "16"))
@@ -495,10 +501,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     n_requests = int(env.get(constants.SERVE_REQUESTS_ENV, "200"))
     quantize = env.get(constants.SERVE_QUANT_ENV, "") in ("1", "true")
 
-    print("serving a seeded random init (checkpoint restore is not "
-          "ported yet)", flush=True)
-    params = llama.init_params(
-        cfg, torch.Generator(device=device).manual_seed(0), device)
+    # The checkpoint contract of workloads/generate.py: the trained
+    # parameters where a checkpoint exists, a random init otherwise.
+    params, step = restore_params(cfg, device)
+    print(f"serving the checkpoint at step {step}" if step else
+          "serving a seeded random init (no checkpoint found)", flush=True)
     if quantize:
         from trainingjob_operator_tpu_torch.models.quant import (
             quantize_weights)
@@ -508,7 +515,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     service = DecodeService(params, cfg, slots=slots, max_len=max_len,
                             prefill_chunk=chunk, queue_cap=queue_cap,
-                            device=device)
+                            emitter=TelemetryEmitter(), device=device)
     print(f"serve: device={device} slots={slots} "
           f"max_len={service.max_len} chunk={chunk} queue_cap={queue_cap} "
           f"rate={rate}", flush=True)

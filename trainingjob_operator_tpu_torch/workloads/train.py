@@ -1,51 +1,78 @@
-"""Single-process training plumbing for the port.
+"""Single-card training plumbing for the port: own copy of the JAX
+package's ``workloads/train.py``.
 
-Own copies of the JAX package's ``workloads/train.py`` pieces the Llama
-trainer needs on one card: gradient accumulation
-(``accumulated_value_and_grad``), batch geometry (``round_global_batch``),
-the batch sources (``build_batch_sources``), ``default_remat``,
-``mean_eval_fn``, ``throughput_line``, the AdamW of
-``workloads/llama_elastic.py`` in optax's order (``AdamW``) and the step
-loop (``run_loop``, the counterpart of ``run_elastic_loop`` without the
-checkpoint, preemption, resize, telemetry and tracer, which are later
-slices: ROADMAP.md queue 1 items 2b, 2c and 3).
+Gradient accumulation (``accumulated_value_and_grad``), batch geometry
+(``round_global_batch``), the batch sources (``build_batch_sources``),
+``default_remat``, ``mean_eval_fn``, ``throughput_line``, the AdamW of
+``workloads/llama_elastic.py`` in optax's order (``AdamW``, whose state is
+a tree ``{"count", "mu", "nu"}``), checkpoints (``CheckpointState``: step
+directories, the resume image and their fallback ladder), the preemption
+handler (``GracefulShutdown``), the step profiler and telemetry
+(``StepProfiler``) and the step loop (``run_elastic_loop`` at width 1).
 
 Parameters are a nested dict of tensors (the ``models/llama.py`` tree);
 where JAX returns new trees, the port updates the leaves in place.
+
+The durable checkpoint format is the port's own, since orbax is JAX's: a
+step directory ``<path>/<step>/`` holds one ``torch.save`` file per
+top-level item (``params.pt``, ``opt_state.pt``, ``step.pt``), written
+under a temporary name and committed by ``os.replace``; the newest 2 are
+kept (orbax ``max_to_keep=2``).  Beside them, ``resume-image.bin`` is the
+JAX package's container: ``pickle((step, tree))`` of numpy leaves and a
+sha256 footer.  A JAX (orbax) checkpoint cannot be read by the port.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import logging
 import os
+import pickle
+import shutil
+import signal
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from trainingjob_operator_tpu_torch import constants
+from trainingjob_operator_tpu_torch.obs.logs import (
+    configure_logging,
+    get_logger,
+)
+from trainingjob_operator_tpu_torch.obs.telemetry import TelemetryEmitter
+from trainingjob_operator_tpu_torch.obs.trace import tracer_from_env
+from trainingjob_operator_tpu_torch.utils.metrics import METRICS
 
 
-def tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested dict, in insertion order."""
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of a nested dict, in insertion order."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_map(fn: Callable, tree):
+    """``tree`` with every leaf ``x`` replaced by ``fn(x)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def trainable_copy(tree, device):
     """A copy of a parameter tree on ``device`` whose leaves require grad
     (a copy on the same device too, so that training it leaves ``tree`` as
     it was)."""
-    if isinstance(tree, dict):
-        return {k: trainable_copy(v, device) for k, v in tree.items()}
-    return tree.detach().to(device, copy=True).requires_grad_(True)
+    return tree_map(lambda x: x.detach().to(device, copy=True)
+                    .requires_grad_(True), tree)
 
 
 def _rebuild(tree, leaves):
     """A tree shaped like ``tree`` holding the next items of ``leaves``."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, leaves) for k, v in tree.items()}
-    return next(leaves)
+    return tree_map(lambda _: next(leaves), tree)
 
 
 def accumulated_value_and_grad(loss_fn: Callable, params: Dict[str, Any],
@@ -86,33 +113,871 @@ class AdamW:
     ``workloads/llama_elastic.py:111`` builds it (b1 0.9, b2 0.95,
     weight decay 0.1 on every leaf, eps 1e-8), in optax's order: the
     moments, their bias corrections at step count t, then
-    ``p += -lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``.  The state (two
-    moments per leaf, zero at the start, and the count) lives on the
-    object; ``step`` updates the leaves in place.  ``torch.optim.AdamW``
-    computes the same update in another order of rounding
-    (tests/test_torch_train.py)."""
+    ``p += -lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``.
+    ``torch.optim.AdamW`` computes the same update in another order of
+    rounding (tests/test_torch_train.py).
+
+    The state is the tree ``self.state = {"count": int, "mu": tree, "nu":
+    tree}`` (``mu`` and ``nu`` shaped like the parameters, zero at the
+    start; ``adamw_state_from_numpy`` converts optax's).  ``step`` updates
+    the parameters and the state in place, so the dict a checkpoint was
+    handed stays the live state."""
 
     def __init__(self, params, lr: float, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1):
+                 weight_decay: float = 0.1,
+                 state: Optional[Dict[str, Any]] = None):
         self.lr, self.b1, self.b2 = float(lr), float(b1), float(b2)
         self.eps, self.weight_decay = float(eps), float(weight_decay)
-        self.count = 0
-        self.mu = [torch.zeros_like(p) for p in tree_leaves(params)]
-        self.nu = [torch.zeros_like(p) for p in tree_leaves(params)]
+        if state is None:
+            state = {"count": 0,
+                     "mu": tree_map(lambda p: torch.zeros_like(
+                         p, requires_grad=False), params),
+                     "nu": tree_map(lambda p: torch.zeros_like(
+                         p, requires_grad=False), params)}
+        self.state = state
 
     @torch.no_grad()
     def step(self, params, grads) -> None:
-        self.count += 1
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
+        self.state["count"] += 1
+        count = self.state["count"]
+        bc1 = 1.0 - self.b1 ** count
+        bc2 = 1.0 - self.b2 ** count
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                              self.mu, self.nu):
+                              tree_leaves(self.state["mu"]),
+                              tree_leaves(self.state["nu"])):
             m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             u = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
             u.add_(p, alpha=self.weight_decay)
             p.add_(u, alpha=-self.lr)
+
+
+def adamw_state_from_numpy(opt_state, device="cuda") -> Dict[str, Any]:
+    """optax's ``adamw`` state (its leaves as numpy) -> the ``AdamW`` state
+    tree on ``device``: the ``ScaleByAdamState`` (count, mu, nu) of the
+    chain, mu and nu as f32 trees keyed like the parameters (the other
+    links of optax's chain hold no state)."""
+    from trainingjob_operator_tpu_torch import resolve_device
+
+    dev = resolve_device(device)
+    adam = next(s for s in opt_state
+                if all(hasattr(s, f) for f in ("count", "mu", "nu")))
+
+    def to_torch(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    return {"count": int(np.asarray(adam.count)),
+            "mu": tree_map(to_torch, adam.mu),
+            "nu": tree_map(to_torch, adam.nu)}
+
+
+def _ensure_workload_logging() -> None:
+    """Install the structured handler once (JSON under
+    ``TRAININGJOB_LOG_JSON=1``) when nothing handles the root logger, so
+    the step records reach the worker's log."""
+    if logging.getLogger().handlers:
+        return
+    configure_logging(json_output=os.environ.get(constants.LOG_JSON_ENV)
+                      == "1", level=logging.INFO)
+
+
+#: The "skip this top-level item on restore" marker of
+#: ``CheckpointState.restore_or_init`` templates (orbax's PLACEHOLDER in
+#: the JAX package).  Identity-compared, never saved.
+_PLACEHOLDER = object()
+
+
+def ckpt_placeholder() -> Any:
+    """The marker that makes ``restore_or_init`` skip a top-level item: a
+    sampler restores the parameters without reading the optimizer
+    moments."""
+    return _PLACEHOLDER
+
+
+class CheckpointState:
+    """Step-directory checkpoints of one tree, latest-step retention, and a
+    background writer.
+
+    The default is the **snapshot-donate** pipeline: ``save()`` copies the
+    tree to the host at the step boundary (the only stall the loop sees)
+    and a writer thread writes and commits the step directory, then the
+    resume image.  ``TRAININGJOB_CKPT_SNAPSHOT=0``, or ``save(wait=True)``,
+    takes the direct path: the save is written and committed before
+    ``save`` returns.
+    """
+
+    #: Bounded re-check interval of the writer handshakes.
+    _WAIT_S = 0.2
+    #: Committed steps kept (orbax ``max_to_keep``).
+    KEEP = 2
+
+    def __init__(self, directory: str, value: Dict[str, Any]):
+        self.value = value
+        self._dir = directory
+        self._cv = threading.Condition()
+        self._writer: Optional[threading.Thread] = None
+        self._pending: Optional[tuple] = None
+        self._busy = False
+        self._error: Optional[BaseException] = None
+        #: Set while a waited save supersedes the writer's write in flight.
+        self._cancel = threading.Event()
+        #: Last step whose write committed: the recovery point a crash in
+        #: the middle of a write falls back to.
+        self.committed_step: Optional[int] = None
+        #: Step-visible wall time of the most recent ``save()``, ms.
+        self.last_stall_ms = 0.0
+
+    @classmethod
+    def restore_or_init(cls, rdv, init_value: Dict[str, Any],
+                        subdir: Optional[str] = None) -> "CheckpointState":
+        """The newest committed step under the worker's path, restored onto
+        ``init_value``'s devices and dtypes, or ``init_value`` itself where
+        there is none.  The path is ``<checkpoint_dir>/<subdir>`` (one path
+        for every process of a job: it must outlive a change of width), or
+        ``<checkpoint_dir>/<replica>/<index>`` without a subdir.
+
+        Tensor leaves of ``init_value`` are the template: a checkpoint of
+        another structure or shape fails here, not in a step.  A top-level
+        item that is ``ckpt_placeholder()`` is not read at all.  A full
+        restore tries the resume image first, then the committed steps,
+        newest first (``_restore_with_fallback``)."""
+        directory = rdv.checkpoint_dir
+        if not directory:
+            return cls("", init_value)
+        if subdir is not None:
+            path = os.path.join(os.path.abspath(directory), subdir)
+        else:
+            path = os.path.join(os.path.abspath(directory),
+                                rdv.replica_name or "worker",
+                                str(rdv.replica_index))
+        os.makedirs(path, exist_ok=True)
+        steps = committed_steps(path)
+        if not steps:
+            return cls(path, init_value)
+        latest = steps[0]
+        skip = [k for k, v in init_value.items() if v is _PLACEHOLDER]
+        if skip:
+            template = {k: v for k, v in init_value.items() if k not in skip}
+            restored = _read_step(path, latest, template)
+            for k in skip:
+                restored[k] = _PLACEHOLDER
+        else:
+            restored = _load_resume_image(path, latest, init_value)
+            if restored is None:
+                restored = _restore_with_fallback(path, latest, init_value)
+        return cls(path, restored)
+
+    def snapshot_mode(self) -> bool:
+        """True when saves take the snapshot-donate pipeline."""
+        return os.environ.get(constants.CKPT_SNAPSHOT_ENV, "1") != "0"
+
+    def save(self, value: Dict[str, Any], wait: bool = False,
+             tracer: Any = None, trace_parent: Any = None) -> float:
+        """Save ``value`` at its ``step``; returns the step-visible stall in
+        ms.
+
+        Snapshot mode: the host copy here (span ``ckpt.snapshot``), the
+        write on the background writer (span ``ckpt.write``).  A new
+        snapshot replaces one the writer has not started (latest wins; the
+        committed steps stay monotonic).  A writer failure is raised from
+        the next ``save()`` or ``finalize()``.
+
+        Direct mode (``wait=True`` or ``TRAININGJOB_CKPT_SNAPSHOT=0``):
+        the write and commit happen here; in snapshot mode a waited save
+        also writes the resume image, so a preemption checkpoint resumes
+        by the fast path.  A waited save supersedes the writer's older
+        snapshot: a pending one is dropped and the one in flight is given
+        up at its next file (the JAX package waits for it), so a
+        preemption writes one state, not two, inside the shutdown
+        watchdog's window."""
+        t0 = time.perf_counter()
+        self.value = value
+        if not self._dir:
+            return 0.0
+        step = int(value.get("step", 0))
+        if wait or not self.snapshot_mode():
+            if wait:
+                with self._cv:
+                    self._pending = None
+                    self._cancel.set()
+            try:
+                self._drain()
+            finally:
+                self._cancel.clear()
+            with _span(tracer, "ckpt.write", parent=trace_parent,
+                       step=step):
+                host_value = _snapshot_to_host(value)
+                _write_step(self._dir, step, host_value, self.KEEP)
+            with self._cv:
+                self.committed_step = step
+            if self.snapshot_mode():
+                _write_resume_image(self._dir, step, host_value)
+        else:
+            with self._cv:
+                self._surface_error_locked()
+                # Superseded by this save: its pinned buffers go back to
+                # the host allocator first, for this snapshot to reuse.
+                self._pending = None
+            with _span(tracer, "ckpt.snapshot", parent=trace_parent,
+                       step=step):
+                host_value = _snapshot_to_host(value)
+            with self._cv:
+                self._pending = (step, host_value, tracer, trace_parent)
+                if self._writer is None:
+                    self._writer = threading.Thread(
+                        target=self._writer_loop, daemon=True,
+                        name="ckpt-writer")
+                    self._writer.start()
+                self._cv.notify_all()
+        self.last_stall_ms = (time.perf_counter() - t0) * 1e3
+        return self.last_stall_ms
+
+    def _writer_loop(self) -> None:
+        while True:
+            with self._cv:
+                while self._pending is None:
+                    self._cv.wait(self._WAIT_S)
+                step, host_value, tracer, parent = self._pending
+                self._pending = None
+                self._busy = True
+            try:
+                self._write(step, host_value, tracer, parent)
+            except _Superseded:
+                pass
+            # Stashed and raised from the next save()/finalize() on the step
+            # loop: the writer must neither die silently nor end the process.
+            except BaseException as exc:
+                with self._cv:
+                    self._error = exc
+            finally:
+                with self._cv:
+                    self._busy = False
+                    self._cv.notify_all()
+
+    def _write(self, step: int, host_value: Dict[str, Any], tracer: Any,
+               parent: Any) -> None:
+        with _span(tracer, "ckpt.write", parent=parent, step=step):
+            _write_step(self._dir, step, host_value, self.KEEP,
+                        self._cancel)
+        with self._cv:
+            self.committed_step = step
+        # After the commit, so the image is never newer than the step
+        # directory it mirrors.
+        _write_resume_image(self._dir, step, host_value, self._cancel)
+
+    def _surface_error_locked(self) -> None:
+        """Raise a stashed writer failure (the caller holds ``_cv``)."""
+        if self._error is not None:
+            exc, self._error = self._error, None
+            raise RuntimeError(
+                f"background checkpoint write failed; last committed step: "
+                f"{self.committed_step}") from exc
+
+    def _drain(self) -> None:
+        """Block until the writer is idle, then raise a stashed writer
+        error.  A writer stuck on a dead filesystem blocks here; under
+        preemption the ``GracefulShutdown`` watchdog exits 143 and
+        recovery falls back to ``committed_step``."""
+        with self._cv:
+            while self._pending is not None or self._busy:
+                self._cv.wait(self._WAIT_S)
+            self._surface_error_locked()
+
+    def finalize(self) -> None:
+        """Wait for the background write in flight; call before exit."""
+        if self._dir:
+            self._drain()
+
+
+def _span(tracer: Any, name: str, parent: Any = None, **attrs: Any):
+    """``tracer.span`` when a tracer is wired, else a no-op context.  Spans
+    of the writer thread pass ``parent`` explicitly: the current-span
+    variable is empty there."""
+    if tracer is None:
+        return contextlib.nullcontext()
+    return tracer.span(name, parent=parent, **attrs)
+
+
+def _snapshot_to_host(value: Any) -> Any:
+    """Host copy of a checkpoint tree.  Every CUDA leaf is copied into a
+    fresh pinned buffer with ``non_blocking=True`` (PyTorch's host
+    allocator recycles the pinned blocks of earlier snapshots), all copies
+    are issued before one event is waited on, so the stall is one
+    overlapped transfer.  The copies have landed when this returns: AdamW
+    updates the parameters in place, and the next step may overwrite the
+    device buffers at once.  CPU leaves are cloned; other leaves are kept
+    as they are."""
+    on_card = []
+
+    def copy(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.detach()
+        if x.is_cuda:
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x, non_blocking=True)
+            on_card.append(x)
+            return host
+        return x.clone()
+
+    host_value = tree_map(copy, value)
+    if on_card:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(on_card[0].device))
+        done.synchronize()
+    return host_value
+
+
+class _Superseded(Exception):
+    """A background write given up for a newer, waited save."""
+
+
+def _check(cancel: Optional[threading.Event]) -> None:
+    if cancel is not None and cancel.is_set():
+        raise _Superseded
+
+
+def committed_steps(path: str) -> List[int]:
+    """The committed step directories under ``path``, newest first."""
+    try:
+        names = os.listdir(path)
+    except FileNotFoundError:
+        return []
+    return sorted((int(n) for n in names
+                   if n.isdigit() and os.path.isdir(os.path.join(path, n))),
+                  reverse=True)
+
+
+def _write_step(path: str, step: int, host_value: Dict[str, Any],
+                keep: int, cancel: Optional[threading.Event] = None) -> None:
+    """Write ``host_value`` as step directory ``<path>/<step>`` (one
+    ``torch.save`` file per top-level item) under a temporary name,
+    commit it by ``os.replace``, then drop all but the ``keep`` newest
+    committed steps.  A step written again replaces the old directory.
+    Once ``cancel`` is set, the write stops before its next file, removes
+    what it wrote and raises ``_Superseded``."""
+    tmp = os.path.join(path, f".tmp-{step}-{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        for key, item in host_value.items():
+            _check(cancel)
+            torch.save(item, os.path.join(tmp, f"{key}.pt"))
+        _check(cancel)
+    except _Superseded:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    final = os.path.join(path, str(step))
+    old = None
+    if os.path.exists(final):
+        old = os.path.join(path, f".old-{step}-{os.getpid()}")
+        os.replace(final, old)
+    os.replace(tmp, final)
+    if old is not None:
+        shutil.rmtree(old, ignore_errors=True)
+    for stale in committed_steps(path)[keep:]:
+        shutil.rmtree(os.path.join(path, str(stale)), ignore_errors=True)
+
+
+def _onto(template: Any, loaded: Any, where: str = "") -> Any:
+    """``loaded`` (torch or numpy leaves) in the template's structure, each
+    tensor leaf on the template leaf's device and in its dtype.  Raises
+    ``ValueError`` where the keys or a shape differ."""
+    if isinstance(template, dict):
+        if not isinstance(loaded, dict) or set(loaded) != set(template):
+            got = sorted(loaded) if isinstance(loaded, dict) else \
+                type(loaded).__name__
+            raise ValueError(f"checkpoint structure at {where or '/'}: "
+                             f"{got} != template {sorted(template)}")
+        return {k: _onto(t, loaded[k], f"{where}/{k}")
+                for k, t in template.items()}
+    if isinstance(template, torch.Tensor):
+        x = loaded
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        if not isinstance(x, torch.Tensor) or tuple(x.shape) != tuple(
+                template.shape):
+            shape = tuple(getattr(x, "shape", ()))
+            raise ValueError(f"checkpoint leaf {where}: shape {shape} != "
+                             f"template {tuple(template.shape)}")
+        return x.to(device=template.device, dtype=template.dtype)
+    return loaded
+
+
+def _read_step(path: str, step: int, template: Dict[str, Any]
+               ) -> Dict[str, Any]:
+    """The top-level items of ``template`` from step directory ``step``
+    (``torch.load(weights_only=True)``), onto the template."""
+    d = os.path.join(path, str(step))
+    return {key: _onto(t, torch.load(os.path.join(d, f"{key}.pt"),
+                                     map_location="cpu", weights_only=True),
+                       key)
+            for key, t in template.items()}
+
+
+#: The flat host snapshot of the latest committed step, beside the step
+#: directories.
+_RESUME_IMAGE = "resume-image.bin"
+#: Bytes of the sha256 footer after the pickle: read verifies it before
+#: unpickling, so a torn or flipped image is "corrupt", not an unpickling
+#: error or silently wrong state.
+_CKPT_SHA_LEN = 32
+
+
+def resume_fastpath_enabled() -> bool:
+    """Whether a restore reads the resume image first
+    (``TRAININGJOB_RESUME_OVERLAP=0`` turns it off)."""
+    return os.environ.get(constants.RESUME_OVERLAP_ENV, "1") != "0"
+
+
+def _note_fallback_metric(metric: str, reason: str) -> None:
+    """Count one classified checkpoint fallback, per reason."""
+    METRICS.inc(metric, reason=reason)
+
+
+def _image_leaf(x: Any) -> Any:
+    """A host leaf as the resume image holds it: numpy where numpy has the
+    dtype (the JAX package's image holds numpy), else the tensor."""
+    if isinstance(x, torch.Tensor) and x.dtype != torch.bfloat16:
+        return x.numpy()
+    return x
+
+
+class _HashingWriter:
+    """A file's ``write`` that also feeds the bytes to sha256, so the
+    image's footer is computed as the pickle streams out (no copy of the
+    whole payload in memory); raises ``_Superseded`` once ``cancel`` is
+    set."""
+
+    def __init__(self, f, cancel: Optional[threading.Event]):
+        self._f = f
+        self._cancel = cancel
+        self.sha = hashlib.sha256()
+
+    def write(self, data) -> int:
+        _check(self._cancel)
+        self.sha.update(data)
+        return self._f.write(data)
+
+
+def _write_resume_image(path: str, step: int, host_value: Any,
+                        cancel: Optional[threading.Event] = None) -> None:
+    """Write the host snapshot as the **resume image**: ``(step, tree)`` in
+    one pickle with a sha256 footer, atomically replaced.  A restore then
+    costs one sequential read.  Best-effort: the step directory is the
+    durable copy, and any problem with the image falls back to it.  A
+    write stopped by ``cancel`` raises ``_Superseded``."""
+    if not path:
+        return
+    target = os.path.join(path, _RESUME_IMAGE)
+    tmp = f"{target}.tmp-{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            body = _HashingWriter(f, cancel)
+            pickle.dump((step, tree_map(_image_leaf, host_value)), body,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+            f.write(body.sha.digest())
+        os.replace(tmp, target)
+    except _Superseded:
+        os.remove(tmp)
+        raise
+    # The step directory is already committed; a failed image costs the
+    # next resume its fast path, never correctness.
+    except Exception as exc:
+        print(f"ckpt: resume image write failed ({exc!r}); "
+              f"next resume will use the step directories", flush=True)
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+
+
+def _load_resume_image(path: str, latest: int, template: Any) -> Any:
+    """Resume fast path: the state from the image of
+    ``_write_resume_image``, onto the template.  Returns None (the caller
+    falls back to the step directories) with a classified reason:
+    ``missing``, ``corrupt`` (read error, truncation, sha256 mismatch,
+    unpickling failure), ``stale`` (the image's step is not ``latest``) or
+    ``structure_mismatch`` (the template's keys or shapes differ), counted
+    per reason in ``trainingjob_resume_image_fallbacks_total``.
+    ``TRAININGJOB_CKPT_FAULT=resume_image`` flips one byte of the image
+    after the read, to exercise the corrupt rung."""
+    if not resume_fastpath_enabled():
+        return None
+
+    def fall(reason: str, detail: str = "") -> None:
+        _note_fallback_metric("trainingjob_resume_image_fallbacks_total",
+                              reason)
+        suffix = f" ({detail})" if detail else ""
+        print(f"resume: image fallback reason={reason}{suffix}; "
+              f"using the step directories", flush=True)
+
+    target = os.path.join(path, _RESUME_IMAGE)
+    if not os.path.exists(target):
+        fall("missing")
+        return None
+    try:
+        with open(target, "rb") as f:
+            raw = f.read()
+    except OSError as exc:
+        fall("corrupt", f"read failed: {exc!r}")
+        return None
+    if os.environ.get(constants.CKPT_FAULT_ENV, "") == "resume_image" and raw:
+        raw = bytes([raw[0] ^ 0xFF]) + raw[1:]
+    if len(raw) <= _CKPT_SHA_LEN:
+        fall("corrupt", f"truncated ({len(raw)} bytes)")
+        return None
+    body, footer = raw[:-_CKPT_SHA_LEN], raw[-_CKPT_SHA_LEN:]
+    if hashlib.sha256(body).digest() != footer:
+        fall("corrupt", "sha256 mismatch")
+        return None
+    try:
+        # The image was written by an earlier run of this job, behind a
+        # verified footer: the same trust boundary as the checkpoint.
+        step, host_value = pickle.loads(body)
+    # Unpickling a verified but wrong payload can raise nearly anything;
+    # every failure is the corrupt rung.
+    except Exception as exc:
+        fall("corrupt", f"unpickle failed: {exc!r}")
+        return None
+    if step != latest:
+        fall("stale", f"image step {step} != latest {latest}")
+        return None
+    try:
+        restored = _onto(template, host_value)
+    except ValueError as exc:
+        fall("structure_mismatch", f"{exc}")
+        return None
+    print(f"resume: step {step} restored from resume image", flush=True)
+    return restored
+
+
+def _restore_with_fallback(path: str, latest: int, template: Any) -> Any:
+    """Restore from the committed steps, newest first: ``latest``, then
+    each earlier retained step.  A failed rung is counted in
+    ``trainingjob_ckpt_restore_fallbacks_total`` with reason
+    ``corrupt_latest`` (the newest step) or ``corrupt_retained`` (an
+    older one).  ``TRAININGJOB_CKPT_FAULT=corrupt_latest`` fails the newest
+    rung.  When every rung fails, the first error is raised."""
+    steps = committed_steps(path)
+    if latest not in steps:
+        steps.insert(0, latest)
+    inject = os.environ.get(constants.CKPT_FAULT_ENV, "") == "corrupt_latest"
+    first_err: Optional[BaseException] = None
+    for step in steps:
+        try:
+            if inject and step == latest:
+                raise ValueError(
+                    "injected corrupt checkpoint (TRAININGJOB_CKPT_FAULT="
+                    f"corrupt_latest, step {step})")
+            restored = _read_step(path, step, template)
+        # A corrupt rung can fail anywhere in the read; classify it and try
+        # the next retained step.
+        except Exception as exc:
+            if first_err is None:
+                first_err = exc
+            reason = ("corrupt_latest" if step == latest
+                      else "corrupt_retained")
+            _note_fallback_metric("trainingjob_ckpt_restore_fallbacks_total",
+                                  reason)
+            print(f"resume: restore of step {step} failed reason={reason} "
+                  f"({type(exc).__name__}: {str(exc)[:200]}); trying "
+                  f"previous committed step", flush=True)
+            continue
+        if step != latest:
+            print(f"resume: restored previous committed step {step} "
+                  f"(latest {latest} unreadable)", flush=True)
+        return restored
+    raise first_err
+
+
+class GracefulShutdown:
+    """Preemption-aware step loop: SIGTERM sets a flag, and the loop saves
+    at the *current* step and exits 143, so recovery replays no step.  143
+    is in the operator's default restarting exit codes, so a preempted
+    worker is restarted, not failed.
+
+    The handler only sets the flag (a save from signal context would race
+    the background writer); the loop polls it between steps.  A watchdog
+    exits 143 anyway when the loop does not surface in ``stuck_grace``
+    seconds, or its save does not finish in 3 x that.
+    """
+
+    EXIT_CODE = 143
+
+    def __init__(self, stuck_grace: float = 3.0) -> None:
+        self.requested = False
+        self._surfaced = False
+        self._save_done = False
+        self._prev: Any = None
+        self._stuck_grace = stuck_grace
+
+    def install(self) -> "GracefulShutdown":
+        def _watchdog():
+            time.sleep(self._stuck_grace)
+            if self._surfaced:
+                time.sleep(3 * self._stuck_grace)
+                if self._save_done:
+                    return
+                print("shutdown watchdog: preemption checkpoint stuck; "
+                      f"force-exiting {self.EXIT_CODE}", flush=True)
+            else:
+                print("shutdown watchdog: step loop stuck past "
+                      f"{self._stuck_grace}s; force-exiting {self.EXIT_CODE}",
+                      flush=True)
+            os._exit(self.EXIT_CODE)
+
+        def _handler(signum, frame):
+            self.requested = True
+            threading.Thread(target=_watchdog, daemon=True).start()
+
+        self._prev = signal.signal(signal.SIGTERM, _handler)
+        return self
+
+    def uninstall(self) -> None:
+        """Put back the SIGTERM handler ``install`` replaced."""
+        if self._prev is not None:
+            signal.signal(signal.SIGTERM, self._prev)
+            self._prev = None
+
+    def checkpoint_and_exit(self, save: Callable[[], None]) -> None:
+        """Call from the step loop once ``requested`` is seen."""
+        self._surfaced = True
+        save()
+        self._save_done = True
+        print("preemption checkpoint committed; exiting 143", flush=True)
+        # os._exit, not SystemExit: teardown would join the daemon threads
+        # (prefetcher, writer) for nothing.
+        os._exit(self.EXIT_CODE)
+
+
+def _hbm_bytes_in_use(device: torch.device) -> Optional[float]:
+    """Device memory PyTorch holds in tensors on ``device``; None off the
+    card."""
+    if device.type != "cuda":
+        return None
+    return float(torch.cuda.memory_allocated(device))
+
+
+class StepProfiler:
+    """Env-gated profiling and per-step telemetry of the step loop.
+
+    ``TRAININGJOB_PROFILE_DIR=/path`` with ``TRAININGJOB_PROFILE_STEPS=a:b``
+    (default 2:5) wraps steps [a, b) in ``torch.profiler`` and writes a
+    Chrome trace there; ``TRAININGJOB_STEP_TIMES=1`` logs each step's wall
+    time.  With ``TRAININGJOB_TELEMETRY_ADDR`` (and the job identity) set,
+    every step is pushed to the controller's aggregator: index, wall ms,
+    tokens, FLOPs, loss, the checkpoint stall of the save before it, and
+    every ``TRAININGJOB_HBM_SAMPLE_STEPS`` steps (default 32) the device
+    memory in use as ``hbm_bytes``.  The fence of a timed step is a read
+    of its loss.
+    """
+
+    def __init__(self, units_per_step: float = 0.0,
+                 flops_per_step: float = 0.0, device="cuda") -> None:
+        from trainingjob_operator_tpu_torch import resolve_device
+
+        self.device = resolve_device(device)
+        self.trace_dir = os.environ.get(constants.PROFILE_DIR_ENV, "")
+        rng = os.environ.get(constants.PROFILE_STEPS_ENV, "2:5")
+        try:
+            a, b = rng.split(":")
+            self.start_step, self.stop_step = int(a), int(b)
+        except ValueError:
+            self.start_step, self.stop_step = 2, 5
+        self.step_times = os.environ.get(constants.STEP_TIMES_ENV) == "1"
+        self.emitter = TelemetryEmitter(units_per_step=units_per_step,
+                                        flops_per_step=flops_per_step)
+        if self.step_times or self.emitter.enabled:
+            _ensure_workload_logging()
+        self._log = get_logger("trainingjob.workload.steps")
+        self._prof: Any = None
+        self._t0 = 0.0
+        #: Every step-visible checkpoint stall of this run, ms.
+        self.ckpt_stalls: List[float] = []
+        self._ckpt_stall_ms: Optional[float] = None
+        try:
+            self.hbm_sample_steps = int(os.environ.get(
+                constants.HBM_SAMPLE_STEPS_ENV, "32") or "0")
+        except ValueError:
+            self.hbm_sample_steps = 32
+
+    def step_start(self, i: int) -> None:
+        if self.trace_dir and self._prof is None and i == self.start_step:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+        self._t0 = time.perf_counter()
+
+    def step_end(self, i: int, sync: Any = None) -> None:
+        """``sync``: the step's loss; reading it is the completion fence
+        of a timed step (and the loss of its telemetry record)."""
+        stopping = self._prof is not None and i + 1 >= self.stop_step
+        loss = None
+        if sync is not None and (self.step_times or stopping
+                                 or self.emitter.enabled):
+            loss = float(sync)
+        if stopping:
+            self._stop_trace()
+        ms = (time.perf_counter() - self._t0) * 1e3
+        if self.step_times:
+            self._log.info("step_time step=%d ms=%.2f", i, ms)
+        if self.emitter.enabled:
+            hbm = None
+            if self.hbm_sample_steps > 0 and i % self.hbm_sample_steps == 0:
+                hbm = _hbm_bytes_in_use(self.device)
+            self.emitter.emit(i, ms, loss=loss, ckpt_ms=self._ckpt_stall_ms,
+                              hbm_bytes=hbm)
+            self._ckpt_stall_ms = None
+
+    def _stop_trace(self) -> None:
+        self._prof.stop()
+        os.makedirs(self.trace_dir, exist_ok=True)
+        path = os.path.join(
+            self.trace_dir,
+            f"profile-{os.getpid()}-steps{self.start_step}-"
+            f"{self.stop_step}.json")
+        self._prof.export_chrome_trace(path)
+        self._prof = None
+        print(f"profiler trace written to {path} "
+              f"(steps {self.start_step}:{self.stop_step})", flush=True)
+
+    def record_checkpoint_stall(self, ms: float) -> None:
+        """A save's step-visible stall: kept for the end-of-run summary
+        and sent on the next step's record (the loop saves after
+        ``step_end``)."""
+        self.ckpt_stalls.append(ms)
+        self._ckpt_stall_ms = ms
+
+    def log_throughput(self, prefix: str, steps_done: int,
+                       units_per_step: float, seconds: float) -> None:
+        _ensure_workload_logging()
+        self._log.info("%s", throughput_line(prefix, steps_done,
+                                             units_per_step, seconds))
+
+    def close(self) -> None:
+        if self._prof is not None:
+            self._stop_trace()
+        self.emitter.close()
+
+
+def run_elastic_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
+                     batch_at: Callable[[int], torch.Tensor],
+                     state: CheckpointState, params: Dict[str, Any],
+                     opt_state: Dict[str, Any], steps: int, start_step: int,
+                     ckpt_every: int, eval_fn: Optional[Callable] = None,
+                     eval_every: int = 0, units_per_step: float = 0.0,
+                     flops_per_step: float = 0.0, device="cuda",
+                     tracer: Optional[Any] = None, trace_parent: str = ""):
+    """The step loop of the JAX ``run_elastic_loop`` at width 1.
+
+    ``step_fn(tokens)`` runs one step, updating ``params`` and
+    ``opt_state`` in place, and returns the loss; ``batch_at(i)`` is step
+    i's host batch, prefetched one step ahead onto ``device`` (the card
+    unless the caller asks for the CPU).  Steps run
+    from ``start_step`` to ``steps``.  Every ``ckpt_every`` steps and at
+    the last the loop prints ``step i/N loss x`` and saves
+    ``{"params", "opt_state", "step"}``; the first step prints
+    ``recovery_timing first_step_s=`` (and, after a resume, its loss);
+    SIGTERM saves at the current step and exits 143
+    (``GracefulShutdown``); the end prints the ``ckpt_stall`` summary,
+    waits for the last save and logs ``train_done``.  Spans ``train.run``,
+    ``train.compile`` (the first step), ``train.step`` and
+    ``train.checkpoint``.
+
+    Returns ``(loss, t_start)``, ``t_start`` the wall time after the first
+    step (its time is set-up: the kernels build there)."""
+    from trainingjob_operator_tpu_torch import resolve_device
+    from trainingjob_operator_tpu_torch.data.loader import Prefetcher
+
+    device = resolve_device(device)
+    shutdown = GracefulShutdown().install()
+    profiler = StepProfiler(units_per_step=units_per_step,
+                            flops_per_step=flops_per_step, device=device)
+    if tracer is None:
+        tracer, trace_parent = tracer_from_env()
+    loss = None
+    t_start = None
+    t_loop = time.time()
+    try:
+        with tracer.span("train.run", parent=trace_parent,
+                         start_step=start_step, steps=steps), \
+                Prefetcher(batch_at, start_step, steps,
+                           device=device) as batches:
+            for i, batch in batches:
+                profiler.step_start(i)
+                with tracer.span("train.compile" if i == start_step
+                                 else "train.step", step=i):
+                    loss = step_fn(batch)
+                    if i == start_step:
+                        float(loss)  # the first step's fence
+                if i == start_step:
+                    t_start = time.time()
+                    print(f"recovery_timing first_step_s="
+                          f"{t_start - t_loop:.2f}", flush=True)
+                    if start_step > 0:
+                        print(f"step {i+1}/{steps} loss {float(loss):.4f} "
+                              f"(first after resume)", flush=True)
+                profiler.step_end(i, sync=loss)
+
+                def save(step, wait=False):
+                    with tracer.span("train.checkpoint", step=step,
+                                     wait=wait) as ckpt_span:
+                        stall_ms = state.save(
+                            {"params": params, "opt_state": opt_state,
+                             "step": step}, wait=wait, tracer=tracer,
+                            trace_parent=ckpt_span)
+                    profiler.record_checkpoint_stall(stall_ms)
+
+                if shutdown.requested:
+                    shutdown.checkpoint_and_exit(
+                        lambda: save(i + 1, wait=True))
+                if (i + 1) % ckpt_every == 0 or i == steps - 1:
+                    print(f"step {i+1}/{steps} loss {float(loss):.4f}",
+                          flush=True)
+                    save(i + 1)
+                if (eval_fn is not None and eval_every > 0
+                        and (i + 1) % eval_every == 0):
+                    print(f"eval step {i+1} loss {eval_fn():.4f}",
+                          flush=True)
+            if profiler.ckpt_stalls:
+                stalls = profiler.ckpt_stalls
+                mode = "snapshot" if state.snapshot_mode() else "sync"
+                print(f"ckpt_stall mode={mode} n={len(stalls)} "
+                      f"avg_ms={sum(stalls) / len(stalls):.1f} "
+                      f"max_ms={max(stalls):.1f}", flush=True)
+            profiler.close()
+            state.finalize()
+    finally:
+        shutdown.uninstall()
+    if units_per_step and t_start is not None:
+        profiler.log_throughput(
+            "train_done", max(steps - start_step - 1, 1), units_per_step,
+            max(time.time() - t_start, 1e-9))
+    _maybe_export_trace(tracer)
+    return loss, t_start
+
+
+def _maybe_export_trace(tracer) -> None:
+    """Write the workload trace (Chrome trace_event JSON) to
+    ``$TRAININGJOB_TRACE_DIR/trace-<pid>.json`` when that is set.
+    Best-effort: an unwritable directory never fails a finished run."""
+    trace_dir = os.environ.get(constants.TRACE_DIR_ENV, "")
+    if not trace_dir or not tracer.enabled:
+        return
+    try:
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"trace-{os.getpid()}.json")
+        with open(path, "w") as f:
+            f.write(tracer.export_chrome())
+        print(f"workload trace written to {path}", flush=True)
+    except OSError as exc:
+        print(f"trace export failed: {exc}", flush=True)
 
 
 def round_global_batch(global_batch: int, shards: int,
@@ -239,8 +1104,7 @@ def build_batch_sources(*, prefix: str, vocab_size: int, global_batch: int,
 
 def default_remat(n_layers: int) -> str:
     """The JAX package's workload default: "attn" for full-depth configs,
-    "none" below 32 layers.  The port does not have "attn" yet
-    (``models/llama.py`` ``remat_policy`` raises on it)."""
+    "none" below 32 layers."""
     return "attn" if n_layers >= 32 else "none"
 
 
@@ -260,39 +1124,3 @@ def throughput_line(prefix: str, steps_done: int, units_per_step: int,
                     seconds: float, unit: str = "tokens") -> str:
     rate = steps_done * units_per_step / max(seconds, 1e-9)
     return f"{prefix} steps={steps_done} {unit}/s={rate:.0f}"
-
-
-def run_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
-             batch_at: Callable[[int], torch.Tensor], steps: int,
-             log_every: int = 10,
-             eval_fn: Optional[Callable[[], float]] = None,
-             eval_every: int = 0, units_per_step: float = 0.0):
-    """The step loop: ``step_fn(batch_at(i))`` for i in [0, steps) (no
-    resume yet: ROADMAP.md queue 1 item 2b), printing ``step i/N loss x``
-    every ``log_every`` steps and at the last, ``eval step i loss x`` every
-    ``eval_every`` steps, and with ``TRAININGJOB_STEP_TIMES=1`` each step's
-    wall time.  Returns ``(loss, t_start)``, ``t_start`` the wall time
-    after the first step (its time is set-up: the kernels build there)."""
-    step_times = os.environ.get(constants.STEP_TIMES_ENV) == "1"
-    loss = None
-    t_start = None
-    for i in range(steps):
-        t0 = time.perf_counter()
-        loss = step_fn(batch_at(i))
-        if i == 0 or step_times:
-            float(loss)  # waits for the step: the fence of both timings
-        if i == 0:
-            t_start = time.time()
-        if step_times:
-            print(f"step_time step={i} "
-                  f"ms={(time.perf_counter() - t0) * 1e3:.2f}", flush=True)
-        if (i + 1) % log_every == 0 or i == steps - 1:
-            print(f"step {i+1}/{steps} loss {float(loss):.4f}", flush=True)
-        if eval_fn is not None and eval_every > 0 \
-                and (i + 1) % eval_every == 0:
-            print(f"eval step {i+1} loss {eval_fn():.4f}", flush=True)
-    if units_per_step and t_start is not None:
-        print(throughput_line("train_done", max(steps - 1, 1),
-                              units_per_step,
-                              max(time.time() - t_start, 1e-9)), flush=True)
-    return loss, t_start
