@@ -50,7 +50,15 @@ script exits non-zero):
    its (out, lse) are kept) and "dots" (32: the backward re-runs it), 66
    RMSNorms a step each; losses within REMAT_LOSS_RTOL of phase 7's; step
    time, tokens/s, peak memory and a step profile of each.
-9. resume_124m: the trainer's entry point (``python -m
+9. sharded_7b_width: phase 7 through the multi-process path at world 1:
+   ``rendezvous.initialize_distributed`` forms a process group of one on
+   NCCL, ``mesh_spec_from_rendezvous`` / ``make_mesh`` build the mesh,
+   and the sharded init and step run with every collective launched over
+   it (``mesh_collectives``: per layer and microbatch 7 all-gathers, 7
+   reduce-scatters and 11 all-reduces); its 8 losses equal phase 7's
+   within SHARDED_LOSS_RTOL (bit for bit expected); step time, tokens/s,
+   peak memory and their gap to phase 7.
+10. resume_124m: the trainer's entry point (``python -m
    ...workloads.llama_elastic``) at the 124M config (dim 768, 8 layers,
    12 heads of 64, vocab 32000; seq 1024, batch 8), as its own processes
    on one temporary checkpoint directory: an uninterrupted run of 12
@@ -64,17 +72,22 @@ script exits non-zero):
    ``generate`` on the checkpoint gives the greedy tokens of the saved
    parameters.  Prints each run's ``recovery_timing`` (restore_s,
    first_step_s) and ``ckpt_stall``.
-10. telemetry: a 6-step 124M run with telemetry, the step profiler and
+11. telemetry: a 6-step 124M run with telemetry, the step profiler and
    the span trace on: one record per step, ``hbm_bytes`` on every second,
    ``ckpt_ms`` on the record after the save, a ``torch.profiler`` Chrome
    trace with device kernels, and the trainer's spans.
+12. cross_width_resume: the trainer's entry point on the tiny config in
+   fp32 as two processes on the machine's CPU (gloo) to step 2, whose two
+   shards a one-process card run (a group of one on NCCL) resumes and
+   trains to step 6; its losses equal an uninterrupted card run's within
+   CROSS_LOSS_RTOL, and its resume record says the image was missing.
 
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
-dK/dV, with their launches on the paths driven (the 7B phases 5-8 and the
-124M trainer of phases 9-10 run the bf16 tensor-core kernels, the tiny
-fp32 phases 3-4 the f32-FMA ones; a trainer process reports its launches
-when it returns) and,
+dK/dV, with their launches on the paths driven (the 7B phases 5-9 and the
+124M trainer of phases 10-11 run the bf16 tensor-core kernels, the tiny
+fp32 phases 3-4 and 12 the f32-FMA ones; a trainer process reports its
+launches when it returns) and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when CUDA is unavailable or the package is not
 beside this script.
@@ -667,11 +680,27 @@ def tiny_train_equivalence(torch, llama, llama_elastic, train):
             "grad_rtol": 1e-4, "grad_atol": 1e-4, **result}
 
 
-def train_7b_width(torch, llama, llama_elastic, remat=None):
+def mesh_collectives(L: int, micro_steps: int):
+    """Collective launches of ``micro_steps`` microbatch steps of an
+    L-layer model on a mesh under remat "none" (``parallel/
+    collectives.py``).  A microbatch all-gathers each layer's 7 weights
+    over fsdp, and tok_embed and lm_head over fsdp and tp; reduce-scatters
+    the gradients of those 7 L + 2 over fsdp; and all-reduces, a layer,
+    the products of wo and w_down over tp (forward), the gradients of the
+    two tp inputs (backward) and of the 7 weights over dp, and once the
+    loss over dp and fsdp, tok_embed's and lm_head's gradients over dp and
+    those of the three norm scales over dp and fsdp."""
+    return {"all_gather": micro_steps * (7 * L + 4),
+            "reduce_scatter": micro_steps * (7 * L + 2),
+            "all_reduce": micro_steps * (11 * L + 10)}
+
+
+def train_7b_width(torch, llama, llama_elastic, remat=None, mesh=None):
     """The trainer's step at Llama-2-7B widths, 8 layers (see the module
     docstring), under ``remat`` (default: the trainer's default at 8
-    layers, "none")."""
+    layers, "none"), on ``mesh`` where given (its collectives counted)."""
     from trainingjob_operator_tpu_torch import ops
+    from trainingjob_operator_tpu_torch.parallel import collectives
     from trainingjob_operator_tpu_torch.workloads import train
 
     dev = torch.device("cuda")
@@ -680,11 +709,12 @@ def train_7b_width(torch, llama, llama_elastic, remat=None):
     remat = remat or train.default_remat(cfg.n_layers)
     t0 = time.perf_counter()
     params = llama.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), dev, master=True)
+        cfg, torch.Generator(device=dev).manual_seed(0), dev, master=True,
+        mesh=mesh)
     for leaf in train.tree_leaves(params):
         leaf.requires_grad_(True)
     step_fn = llama_elastic.make_step_fn(params, cfg, accum=accum, lr=lr,
-                                         remat=remat)
+                                         remat=remat, mesh=mesh)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -692,12 +722,23 @@ def train_7b_width(torch, llama, llama_elastic, remat=None):
                            generator=gen, device=dev)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    collectives.reset_collective_counts()
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
         losses.append(float(step_fn(tokens)))
         step_s.append(time.perf_counter() - t)
     counts = ops.launch_counts()
+    sent = collectives.collective_counts()
+    if mesh is not None:
+        want = {k: n * steps for k, n in
+                mesh_collectives(cfg.n_layers, accum).items()}
+        if remat != "none" or sent != want:
+            raise AssertionError(f"7B-width train on a mesh: collectives "
+                                 f"{sent}, expected {want}")
+    elif any(sent.values()):
+        raise AssertionError(f"7B-width train: collectives {sent} without "
+                             f"a mesh")
     peak = torch.cuda.max_memory_allocated()
     per_step = train_launches(cfg.n_layers, remat, accum, tensor_cores=True)
     if counts != {k: n * steps for k, n in per_step.items()}:
@@ -715,6 +756,7 @@ def train_7b_width(torch, llama, llama_elastic, remat=None):
             "tokens_per_s": batch * seq / steady,
             "peak_mem_gib": peak / 2 ** 30,
             "launches_per_step": per_step, "launches": counts,
+            "collectives": sent,
             "step_profile": profile_steps(torch, lambda: step_fn(tokens),
                                           n=2)}
 
@@ -748,6 +790,60 @@ def remat_7b_width(torch, llama, llama_elastic, none):
         run["losses_equal_none"] = run["losses"] == none["losses"]
         out[remat] = run
     return out
+
+
+#: Relative agreement of the mesh path's 7B-width losses at world 1 with
+#: the single-card path's: the same kernels on the same numbers, with
+#: collectives over one rank (copies, and sums of one term) in between, so
+#: the losses are expected bit for bit.
+SHARDED_LOSS_RTOL = 1e-6
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_7b_width(torch, llama, llama_elastic, plain):
+    """``train_7b_width`` through the multi-process path at world 1: the
+    process group formed by ``rendezvous.initialize_distributed`` on NCCL,
+    the mesh of ``mesh_spec_from_rendezvous``, the sharded init and step,
+    every collective launched over the group of one.  Losses against the
+    single-card run ``plain`` within SHARDED_LOSS_RTOL."""
+    import torch.distributed as dist
+
+    from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
+    from trainingjob_operator_tpu_torch.workloads import rendezvous
+
+    rdv = rendezvous.Rendezvous(
+        num_processes=1, process_id=0,
+        coordinator_address=f"127.0.0.1:{free_port()}")
+    t0 = time.perf_counter()
+    device = rendezvous.initialize_distributed(rdv, torch.device("cuda"))
+    try:
+        mesh = pmesh.make_mesh(pmesh.mesh_spec_from_rendezvous(rdv),
+                               device.type)
+        group_s = time.perf_counter() - t0
+        run = train_7b_width(torch, llama, llama_elastic, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(run["losses"], plain["losses"]))
+    if not rel <= SHARDED_LOSS_RTOL:
+        raise AssertionError(f"7B-width train on a mesh: losses "
+                             f"{run['losses']} vs single-card "
+                             f"{plain['losses']}")
+    return {**run, "backend": "nccl", "world": 1, "mesh": mesh.sizes,
+            "group_s": group_s, "loss_rtol": SHARDED_LOSS_RTOL,
+            "loss_max_rel_err_vs_single_card": rel,
+            "losses_equal_single_card": run["losses"] == plain["losses"],
+            "step_s_ratio_vs_single_card":
+                run["step_s_median"] / plain["step_s_median"],
+            "peak_mem_gib_minus_single_card":
+                run["peak_mem_gib"] - plain["peak_mem_gib"]}
 
 
 #: Runs the trainer's entry point (``python -m ...llama_elastic``) in its
@@ -848,6 +944,36 @@ def run_trainer(env, timeout: float, sigterm_after: str = ""):
         if line.startswith("launches "):
             launches = json.loads(line[len("launches "):])
     return rc, lines, launches, time.perf_counter() - t0
+
+
+def run_trainers(envs, timeout: float, args=()):
+    """(exit codes, output lines, launches) of one trainer process per env
+    in ``envs``, all started together (the ranks of one job); killed
+    after ``timeout`` seconds."""
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for env in envs:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", TRAINER, *args], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = []
+        for proc in procs:
+            left = max(timeout - (time.perf_counter() - t0), 1.0)
+            try:
+                outs.append(proc.communicate(timeout=left)[0])
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                outs.append(proc.communicate()[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    lines = [out.splitlines() for out in outs]
+    launches = [json.loads(ln[len("launches "):]) for out in lines
+                for ln in out if ln.startswith("launches ")]
+    return [p.returncode for p in procs], lines, launches
 
 
 def line_fields(lines, prefix: str) -> dict:
@@ -1069,6 +1195,98 @@ def telemetry(sink, workdir):
             "span_ms": {n: [e["dur"] / 1e3 for e in span_events
                             if e["name"] == n] for n in sorted(set(spans))},
             "launches": counts}
+
+
+#: cross_width_resume: the steps of the two-process CPU run (its last
+#: step saves), and of the card runs.
+CROSS_SAVED, CROSS_STEPS = 2, 6
+#: Relative agreement of the resumed card run's losses with the
+#: uninterrupted card run's: the state at step 2 comes from the CPU, whose
+#: fp32 sums run in another order than the card's.
+CROSS_LOSS_RTOL = 1e-4
+
+
+def cross_width_resume(sink, workdir):
+    """The trainer's entry point on the tiny config in fp32 across widths:
+    two processes on the machine's CPU (gloo) train to step 2 and save it
+    as two shards; one process on the card (a group of one on NCCL)
+    resumes from them and trains to step 6; its losses equal those of an
+    uninterrupted one-process card run within CROSS_LOSS_RTOL."""
+    import os
+
+    def envs(job, ckpt, world, steps):
+        env = dict(os.environ)
+        env.update({"LLAMA_CONFIG": "tiny", "LLAMA_DTYPE": "float32",
+                    "LLAMA_SEQ": "64", "LLAMA_BATCH": "4",
+                    "LLAMA_ACCUM": "2", "LLAMA_STEPS": str(steps),
+                    "LLAMA_CKPT_EVERY": str(CROSS_SAVED),
+                    "TRAININGJOB_CHECKPOINT_DIR": ckpt,
+                    "TRAININGJOB_TELEMETRY_ADDR": sink.address,
+                    "TRAININGJOB_NAMESPACE": "smoke",
+                    "TRAININGJOB_NAME": job,
+                    "TRAININGJOB_ELASTIC_REPLICAS": str(world),
+                    "TRAININGJOB_COORDINATOR_ADDRESS":
+                        f"127.0.0.1:{free_port()}",
+                    "TRAININGJOB_NUM_PROCESSES": str(world),
+                    "OMP_NUM_THREADS": "2"})
+        return [{**env, "TRAININGJOB_PROCESS_ID": str(r)}
+                for r in range(world)]
+
+    ckpt = os.path.join(workdir, "cross")
+    runs, card_launches = {}, []
+    for job, world, steps, args, directory in (
+            ("cross_cpu", 2, CROSS_SAVED, ("--device", "cpu"), ckpt),
+            ("cross_resumed", 1, CROSS_STEPS, (), ckpt),
+            ("cross_plain", 1, CROSS_STEPS, (),
+             os.path.join(workdir, "cross_plain"))):
+        t0 = time.perf_counter()
+        rcs, lines, launches = run_trainers(envs(job, directory, world,
+                                                 steps), 300, args)
+        expect(rcs == [0] * world, f"{job} exited {rcs}",
+               [ln for out in lines for ln in out])
+        if not args:
+            card_launches.extend(launches)
+        recs = sink.steps(job)
+        runs[job] = {"world": world, "wall_s": time.perf_counter() - t0,
+                     "device": "cpu" if args else "cuda",
+                     "losses": {r["step"] + 1: r["loss"] for r in recs},
+                     "resumed": [ln for ln in lines[0]
+                                 if ln.startswith("resume")],
+                     "recovery": line_fields(lines[0],
+                                             "recovery_timing init_s")}
+        if job == "cross_cpu":
+            shards = sorted(os.listdir(os.path.join(ckpt, "llama",
+                                                    str(CROSS_SAVED))))
+            expect(shards == ["shard-0.pt", "shard-1.pt"],
+                   f"step {CROSS_SAVED} holds {shards}", lines[0])
+        if job == "cross_resumed":
+            expect(f"resumed at step {CROSS_SAVED} (width 1)" in lines[0],
+                   "no resume at the saved step", lines[0])
+    got, want = runs["cross_resumed"]["losses"], runs["cross_plain"]["losses"]
+    steps_after = list(range(CROSS_SAVED + 1, CROSS_STEPS + 1))
+    expect(sorted(got) == steps_after
+           and sorted(want) == list(range(1, CROSS_STEPS + 1)),
+           f"steps {sorted(got)} and {sorted(want)}", [])
+    rel = max(abs(got[i] - want[i]) / abs(want[i]) for i in steps_after)
+    expect(rel <= CROSS_LOSS_RTOL, f"resumed losses {got} vs {want}", [])
+    with sink.lock:
+        resumes = [r for r in sink.records
+                   if r.get("job") == "smoke/cross_resumed"
+                   and "resume_restore_ms" in r]
+    expect(len(resumes) == 1
+           and resumes[0].get("resume_fallback") == "missing",
+           f"resume records {resumes}", [])
+    expected = {k: sum(train_launches(2, "none", steps * 2)[k]
+                       for steps in (CROSS_STEPS - CROSS_SAVED, CROSS_STEPS))
+                for k in card_launches[0]}
+    launches = {k: sum(c[k] for c in card_launches) for k in card_launches[0]}
+    expect(launches == expected, f"launches {launches}, expected {expected}",
+           [])
+    return {"config": "tiny", "dtype": "float32", "seq": 64,
+            "global_batch": 4, "accum": 2, "saved_at": CROSS_SAVED,
+            "steps": CROSS_STEPS, "loss_rtol": CROSS_LOSS_RTOL,
+            "loss_max_rel_err": rel, "resume_record": resumes[0],
+            "runs": runs, "launches": launches}
 
 
 def tiny_equivalence(torch, llama, decode, serve):
@@ -1338,6 +1556,10 @@ def main() -> int:
     emit({"phase": "remat_7b_width", "device": name, "nvidia_smi": smi,
           **remat})
     torch.cuda.empty_cache()
+    sharded = sharded_7b_width(torch, llama, llama_elastic, trained)
+    emit({"phase": "sharded_7b_width", "device": name, "nvidia_smi": smi,
+          **sharded})
+    torch.cuda.empty_cache()
 
     sink = LineSink()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1350,6 +1572,9 @@ def main() -> int:
         tel = telemetry(sink, workdir)
         emit({"phase": "telemetry", "device": name, "nvidia_smi": smi,
               **tel})
+        cross = cross_width_resume(sink, workdir)
+        emit({"phase": "cross_width_resume", "device": name,
+              "nvidia_smi": smi, **cross})
     finally:
         sink.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1358,7 +1583,8 @@ def main() -> int:
     # paths and the 124M trainer run the bf16 tensor-core kernels, the tiny
     # fp32 ones the f32-FMA kernels.
     paths = [served, generated, trained, remat["attn"], remat["dots"],
-             resumed, tel, tiny, *tiny_train_runs(tiny_train)]
+             sharded, resumed, tel, cross, tiny,
+             *tiny_train_runs(tiny_train)]
     launches = {k: sum(p["launches"][k] for p in paths)
                 for k in ops.launch_counts()}
     fma = {key: launches[key] - launches[f"{key}_wgmma"]

@@ -3,9 +3,9 @@
 - The port package and ``chip_smoke.py`` import neither ``jax`` nor the
   JAX package (AST scan), and every port module imports with ``jax``
   made unimportable.
-- The port's copy of the env names (serve knobs, worker identity,
-  checkpoint, profiler, telemetry and trace knobs) agrees with the JAX
-  package's.
+- The port's copy of the env names (serve knobs, worker identity and
+  rendezvous, checkpoint, profiler, telemetry and trace knobs) agrees
+  with the JAX package's.
 - Without CUDA, the default-device constructors and entry points raise
   ``RuntimeError`` instead of running on the CPU.
 """
@@ -67,6 +67,15 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_the_parallel_modules_are_scanned():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_files()
+               if PKG in p.parents}
+    assert {"parallel/__init__.py", "parallel/mesh.py",
+            "parallel/sharding.py", "parallel/collectives.py"} <= scanned
+    assert "trainingjob_operator_tpu_torch.parallel.collectives" in \
+        _port_modules()
+
+
 def test_every_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
@@ -89,7 +98,10 @@ def test_serve_env_names_agree_with_the_jax_package():
     from trainingjob_operator_tpu_torch import constants as tconst
 
     names = [n for n in dir(tconst) if n.endswith("_ENV")]
-    assert len(names) == 28
+    assert len(names) == 33
+    # The multi-process slice's rendezvous names.
+    assert {"COORDINATOR_ADDRESS_ENV", "NUM_PROCESSES_ENV",
+            "PROCESS_ID_ENV", "SLICE_ID_ENV", "NUM_SLICES_ENV"} <= set(names)
     # The training slice's checkpoint, preemption, profiler and telemetry
     # names.
     assert {"CKPT_SNAPSHOT_ENV", "CKPT_FAULT_ENV", "RESUME_OVERLAP_ENV",

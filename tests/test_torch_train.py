@@ -471,15 +471,22 @@ class TestEntryPoint:
         assert "final_loss=5." in done[0]
 
     @pytest.mark.parametrize("env,err,match", [
-        ({"LLAMA_TP": "2"}, NotImplementedError, "queue 1 item 3"),
-        ({"LLAMA_PP": "4"}, NotImplementedError, "queue 1 item 3"),
-        # A checkpoint root is taken now; a width above one card is not.
+        # tp is ported, but one process cannot hold tp=2 (the JAX mesh
+        # arithmetic's error), and a tp that does not divide the heads is
+        # refused rather than replicated.
+        ({"LLAMA_TP": "2"}, ValueError,
+         r"1 devices not divisible by tp\*sp\*ep\*pp=2"),
+        ({"LLAMA_TP": "3"}, ValueError, "tp=3 does not divide n_heads=4"),
+        ({"LLAMA_PP": "4"}, NotImplementedError, "queue 1 items 3-4"),
+        # A width above one card is taken now; a job of several processes
+        # without a coordinator to meet at is not.
         ({"TRAININGJOB_CHECKPOINT_DIR": "/x",
-          "TRAININGJOB_ELASTIC_REPLICAS": "2"}, NotImplementedError,
-         "queue 1 item 3"),
+          "TRAININGJOB_NUM_PROCESSES": "2"}, ValueError,
+         "TRAININGJOB_COORDINATOR_ADDRESS is not set"),
         ({"LLAMA_REMAT": "attn_out"}, ValueError, "unknown remat policy"),
+        ({"LLAMA_DTYPE": "float16"}, ValueError, "expected bfloat16 or"),
         ({"LLAMA_CONFIG": "7b", "LLAMA_SP": "2"}, NotImplementedError,
-         "queue 1 item 3")])
+         "queue 1 items 3-4")])
     def test_refuses_what_is_not_ported(self, monkeypatch, env, err, match):
         def must_not_run(*a, **k):
             raise AssertionError("main built a model it must refuse")
@@ -489,6 +496,27 @@ class TestEntryPoint:
             monkeypatch.setenv(k, v)
         with pytest.raises(err, match=match):
             telastic.main(["--device", "cpu"])
+
+    def test_a_restart_draws_no_init(self, monkeypatch, tmp_path, capsys):
+        # The first start draws its parameters on the CPU; a restart that
+        # restores a checkpoint only allocates the template.
+        gens = []
+        real = tllama.init_params
+
+        def recorded(cfg, generator, *a, **k):
+            gens.append(generator)
+            return real(cfg, generator, *a, **k)
+
+        monkeypatch.setattr(tllama, "init_params", recorded)
+        for k, v in {"LLAMA_CONFIG": "tiny", "LLAMA_BATCH": "4",
+                     "LLAMA_SEQ": "16", "LLAMA_CKPT_EVERY": "2",
+                     "TRAININGJOB_CHECKPOINT_DIR": str(tmp_path)}.items():
+            monkeypatch.setenv(k, v)
+        for steps in ("2", "4"):
+            monkeypatch.setenv("LLAMA_STEPS", steps)
+            assert telastic.main(["--device", "cpu"]) == 0
+        assert gens[0].device.type == "cpu" and gens[1] is None
+        assert "resumed at step 2 (width 1)" in capsys.readouterr().out
 
     def test_7b_takes_its_default_remat(self, monkeypatch):
         # default_remat gives "attn" at 32 layers; main gets past the
@@ -670,6 +698,61 @@ class TestTelemetry:
             rec.pop("ts")
         assert records["port"] == records["jax"]
         assert len(records["port"]) == 6
+
+    @pytest.mark.parametrize("fallback", ["", "corrupt_latest"])
+    def test_the_resume_record_is_the_jax_emitters(self, monkeypatch,
+                                                   fallback):
+        from trainingjob_operator_tpu.obs.telemetry import (
+            TelemetryEmitter as JEmitter,
+        )
+
+        from trainingjob_operator_tpu_torch.obs.telemetry import (
+            TelemetryEmitter as TEmitter,
+        )
+
+        self._env(monkeypatch, "127.0.0.1:1")
+        records = {}
+        for side, cls in (("jax", JEmitter), ("port", TEmitter)):
+            sent = records[side] = []
+            em = cls()
+            monkeypatch.setattr(em, "_send", sent.append)
+            em.emit_resume(1234.5678, 0.0, False, fallback=fallback)
+        for rec in records["jax"] + records["port"]:
+            rec.pop("ts")
+        assert records["port"] == records["jax"]
+        assert ("resume_fallback" in records["port"][0]) == bool(fallback)
+
+    def test_the_jax_sink_ingests_the_resume_record(self, monkeypatch):
+        from conftest import wait_for
+        from trainingjob_operator_tpu.obs.telemetry import (
+            TelemetryAggregator,
+            TelemetrySink,
+        )
+        from trainingjob_operator_tpu.utils.metrics import MetricsRegistry
+
+        class Incidents:
+            def __init__(self):
+                self.resumes = []
+
+            def record_resume(self, job, restore_ms, compile_ms, overlapped,
+                              now=None, fallback=""):
+                self.resumes.append((job, restore_ms, compile_ms, overlapped,
+                                     fallback))
+
+        incidents = Incidents()
+        reg = MetricsRegistry()
+        agg = TelemetryAggregator(metrics=reg, incidents=incidents)
+        sink = TelemetrySink(aggregator=agg, publish=False).start()
+        try:
+            self._env(monkeypatch, sink.address)
+            ttrain.push_resume_record(2.5, "corrupt_latest")
+            assert wait_for(lambda: incidents.resumes, 10)
+            assert incidents.resumes == [
+                ("default/portjob", 2500.0, 0.0, False, "corrupt_latest")]
+            assert reg.snapshot().get(
+                "trainingjob_telemetry_malformed_total", 0) == 0
+        finally:
+            sink.stop()
 
     def test_the_jax_sink_ingests_the_port_records(self, monkeypatch):
         from conftest import wait_for

@@ -1,8 +1,8 @@
 """Environment names the ported serving and training paths read.
 
 Own copy of the names the JAX package declares in ``api/constants.py``
-(the ``TRAININGJOB_SERVE_*`` knobs, the worker identity the operator
-injects, the checkpoint, profiling, telemetry and trace knobs); the port
+(the ``TRAININGJOB_SERVE_*`` knobs, the worker identity and rendezvous the
+operator injects, the checkpoint, profiling, telemetry and trace knobs); the port
 imports nothing of that package, so the names are repeated here verbatim
 (tests/test_torch_boundaries.py checks they still agree).
 """
@@ -22,6 +22,14 @@ REPLICA_RESTART_COUNT_ENV = "TRAININGJOB_REPLICA_RESTARTCOUNT"
 JOB_NAME_ENV = "TRAININGJOB_NAME"
 JOB_NAMESPACE_ENV = "TRAININGJOB_NAMESPACE"
 ELASTIC_REPLICAS_ENV = "TRAININGJOB_ELASTIC_REPLICAS"
+# A multi-process job's rendezvous: the coordinator "host:port" the process
+# group forms at, the process count and this process's id, and the slice
+# (MEGASCALE_*) layout that sets the mesh's dp axis.
+COORDINATOR_ADDRESS_ENV = "TRAININGJOB_COORDINATOR_ADDRESS"
+NUM_PROCESSES_ENV = "TRAININGJOB_NUM_PROCESSES"
+PROCESS_ID_ENV = "TRAININGJOB_PROCESS_ID"
+SLICE_ID_ENV = "MEGASCALE_SLICE_ID"
+NUM_SLICES_ENV = "MEGASCALE_NUM_SLICES"
 
 # The trainer's checkpoint root (workloads/train.py CheckpointState).
 CHECKPOINT_DIR_ENV = "TRAININGJOB_CHECKPOINT_DIR"

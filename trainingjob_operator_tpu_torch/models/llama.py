@@ -1,7 +1,8 @@
 """Llama-2 family for the PyTorch port: config, parameters, forward, loss.
 
-Port of the JAX package's ``models/llama.py`` (single-device path: no mesh,
-pipeline or sequence parallelism; every remat policy).  The parameter
+Port of the JAX package's ``models/llama.py``: every remat policy, and a
+``dp x fsdp x tp`` mesh (``parallel/``; no pipeline or sequence
+parallelism).  The parameter
 tree keeps the JAX layout -- a nested dict with stacked ``[L, in, out]``
 layer leaves and ``x @ W`` products, under the same key paths as the JAX
 ``init_params`` -- so a JAX parameter tree carries across leaf for leaf
@@ -10,11 +11,13 @@ layer leaves and ``x @ W`` products, under the same key paths as the JAX
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import importlib
 import math
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -28,6 +31,12 @@ from torch.utils.checkpoint import (
 
 from trainingjob_operator_tpu_torch import resolve_device
 from trainingjob_operator_tpu_torch.ops import flash_attention, rmsnorm
+from trainingjob_operator_tpu_torch.parallel.collectives import (
+    copy_to_tp,
+    gather,
+    reduce_from_tp,
+    sum_over_data,
+)
 
 _flash = importlib.import_module(
     "trainingjob_operator_tpu_torch.ops.flash_attention")
@@ -95,56 +104,115 @@ def _leaf_dtype(name: str, compute: torch.dtype,
     return torch.float32
 
 
-def init_params(config: LlamaConfig, generator: torch.Generator,
-                device="cuda", *, master: bool = False) -> Dict[str, Any]:
+#: path-pattern -> spec (``parallel/sharding.py`` rules): the JAX
+#: package's ``sharding_rules`` verbatim.  fsdp splits the large dim, tp
+#: heads, ffn and vocab; stacked layer leaves carry a leading layer entry
+#: (``pp`` under a pipeline, which the port refuses).
+def sharding_rules(pipeline: bool = False):
+    lead = "pp" if pipeline else None
+    return [
+        (r"tok_embed", (("tp", "fsdp"), None)),
+        (r"lm_head", ("fsdp", "tp")),
+        (r"attn/w[qkv]$", (lead, "fsdp", "tp")),
+        (r"attn/wo$", (lead, "tp", "fsdp")),
+        (r"mlp/w_(gate|up)$", (lead, "fsdp", "tp")),
+        (r"mlp/w_down$", (lead, "tp", "fsdp")),
+        (r"layers/.*norm", (lead, None)),
+        (r"norm", (None,)),
+    ]
+
+
+def check_tp(config: LlamaConfig, tp: int) -> None:
+    """Raise ``ValueError`` unless ``tp`` divides the query and KV heads and
+    the ffn width.  JAX's ``fit_spec`` would quietly replicate such a leaf;
+    the port's tensor-parallel block splits them by hand, so it refuses."""
+    c = config
+    for name, n in (("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
+                    ("ffn_dim", c.ffn_dim)):
+        if n % tp != 0:
+            raise ValueError(f"tp={tp} does not divide {name}={n}")
+
+
+def param_shapes(config: LlamaConfig) -> Dict[str, Any]:
+    """The global shape of every leaf of the parameter tree (the JAX
+    ``init_params`` tree), in its order."""
+    c = config
+    L, D, F = c.n_layers, c.dim, c.ffn_dim
+    kv_dim = c.n_kv_heads * c.head_dim
+    return {
+        "tok_embed": (c.vocab_size, D),
+        "layers": {
+            "attn": {"wq": (L, D, D), "wk": (L, D, kv_dim),
+                     "wv": (L, D, kv_dim), "wo": (L, D, D)},
+            "mlp": {"w_gate": (L, D, F), "w_up": (L, D, F),
+                    "w_down": (L, F, D)},
+            "attn_norm": (L, D),
+            "mlp_norm": (L, D),
+        },
+        "final_norm": (D,),
+        "lm_head": (D, c.vocab_size),
+    }
+
+
+def init_params(config: LlamaConfig, generator: Optional[torch.Generator],
+                device="cuda", *, master: bool = False,
+                mesh=None) -> Dict[str, Any]:
     """Seeded random init on ``device``, same tree and scales as the JAX
     ``init_params`` (normal * in_dim ** -0.5; embeddings and head * 0.02;
-    norms 1).  The numbers differ from JAX's (another generator).  Leaves
-    are drawn in f32 one layer at a time and stored in their leaf dtype, so
-    the peak is one f32 layer slice, not an f32 copy of the model.
+    norms 1).  The numbers differ from JAX's (another generator), and they
+    are drawn on the generator's device: a CPU generator gives the same
+    parameters on every device.  Leaves are drawn in f32 one layer at a
+    time and stored in their leaf dtype, so the peak is one f32 layer
+    slice, not an f32 copy of the model.
 
     ``master=True`` keeps every leaf f32, as the JAX package keeps its
     parameters for training: ``forward`` casts each to the compute dtype
     where it is used, and the gradient reaches the f32 leaf through that
-    cast."""
-    dev = resolve_device(device)
-    c = config
-    compute = c.compute_dtype
-    kv_dim = c.n_kv_heads * c.head_dim
+    cast.
 
-    def dense(name, shape, scale=None):
-        scale = scale if scale is not None else shape[-2] ** -0.5
-        out = torch.empty(shape, dtype=_leaf_dtype(name, compute, master),
+    With a ``mesh`` (``parallel/mesh.py``) each leaf keeps only this rank's
+    block under ``sharding_rules``: every layer slice is drawn whole, as
+    without a mesh (so the blocks of all ranks make up the same numbers),
+    and cut; the peak is the blocks plus one f32 layer slice.
+
+    Without a ``generator`` the weights are allocated and not drawn: a
+    template for a checkpoint's restore."""
+    from trainingjob_operator_tpu_torch.parallel import sharding
+
+    dev = resolve_device(device)
+    compute = config.compute_dtype
+    shapes = param_shapes(config)
+    blocks = None
+    if mesh is not None:
+        check_tp(config, mesh.size("tp"))
+        blocks = dict(sharding.tree_paths(
+            sharding.tree_blocks(shapes, sharding_rules(), mesh)))
+    scales = {"tok_embed": 0.02, "lm_head": 0.02}
+
+    def leaf(path, shape):
+        name = path.rsplit("/", 1)[-1]
+        cut, local = (slice(None),) * len(shape), shape
+        if blocks is not None:
+            cut = sharding.block_slices(blocks[path])
+            local = tuple(b - a for a, b in blocks[path][1])
+        if name.endswith("norm"):
+            return torch.ones(local, dtype=torch.float32, device=dev)
+        scale = scales.get(name, shape[-2] ** -0.5)
+        out = torch.empty(local, dtype=_leaf_dtype(name, compute, master),
                           device=dev)
-        rows = out if len(shape) == 3 else out[None]
+        if generator is None:
+            return out
+        # A stacked leaf is drawn a layer at a time; its layer dim is never
+        # split.
+        rows, row_cut = (out, cut[1:]) if len(shape) == 3 else \
+            (out[None], cut)
         for row in rows:
-            row.copy_(torch.randn(row.shape, generator=generator,
-                                  device=dev, dtype=torch.float32) * scale)
+            full = torch.randn(shape[-2:], generator=generator,
+                               device=generator.device, dtype=torch.float32)
+            row.copy_(full[row_cut] * scale)
         return out
 
-    L = c.n_layers
-    return {
-        "tok_embed": dense("tok_embed", (c.vocab_size, c.dim), 0.02),
-        "layers": {
-            "attn": {
-                "wq": dense("wq", (L, c.dim, c.dim)),
-                "wk": dense("wk", (L, c.dim, kv_dim)),
-                "wv": dense("wv", (L, c.dim, kv_dim)),
-                "wo": dense("wo", (L, c.dim, c.dim)),
-            },
-            "mlp": {
-                "w_gate": dense("w_gate", (L, c.dim, c.ffn_dim)),
-                "w_up": dense("w_up", (L, c.dim, c.ffn_dim)),
-                "w_down": dense("w_down", (L, c.ffn_dim, c.dim)),
-            },
-            "attn_norm": torch.ones((L, c.dim), dtype=torch.float32,
-                                    device=dev),
-            "mlp_norm": torch.ones((L, c.dim), dtype=torch.float32,
-                                   device=dev),
-        },
-        "final_norm": torch.ones((c.dim,), dtype=torch.float32, device=dev),
-        "lm_head": dense("lm_head", (c.dim, c.vocab_size), 0.02),
-    }
+    return sharding.map_with_path(leaf, shapes)
 
 
 def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig,
@@ -222,12 +290,28 @@ def _save_attn(ctx, func, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+#: Set while a layer computes a product whose output no backward reads
+#: (w_down's, which feeds the residual add alone): "dots" leaves it to the
+#: recompute, as JAX's partial evaluation drops it.
+_UNREAD_PRODUCT = contextvars.ContextVar("unread_product", default=False)
+
+
+@contextlib.contextmanager
+def _unread_product():
+    token = _UNREAD_PRODUCT.set(True)
+    try:
+        yield
+    finally:
+        _UNREAD_PRODUCT.reset(token)
+
+
 def _save_dots(ctx, func, *args, **kwargs):
     """JAX ``dots_with_no_batch_dims_saveable``: the outputs of matrix
-    products without batch dims (``aten.mm``: every ``x @ W`` of a layer)
-    are saved; batched products (``aten.bmm``) and the flash forward are
-    recomputed."""
-    if func is torch.ops.aten.mm.default:
+    products without batch dims (``aten.mm``: the ``x @ W`` of q, k, v, wo,
+    w_gate and w_up) are saved; w_down's (``_unread_product``), batched
+    products (``aten.bmm``) and the flash forward are recomputed, and the
+    recompute stops before w_down's product, which nothing reads."""
+    if func is torch.ops.aten.mm.default and not _UNREAD_PRODUCT.get():
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -288,29 +372,82 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
                                         x.dtype))
 
 
-def _block(h, layer, cos, sin, c: LlamaConfig):
+def _block(h, layer, cos, sin, c: LlamaConfig, mesh=None, specs=None):
     """One decoder layer: attention then MLP, each pre-normed and added to
-    the residual stream h [B, T, D]; returns (h, k, v)."""
+    the residual stream h [B, T, D]; returns (h, k, v).
+
+    With a ``mesh`` the layer's leaves are this rank's blocks, and each
+    weight is cast to the compute dtype and gathered over fsdp here, at its
+    use (under remat the backward's re-run gathers again).  Tensor
+    parallel: q, k, v, w_gate and w_up keep their tp columns (this rank's
+    contiguous heads and ffn columns), wo and w_down their tp rows, and the
+    products of wo and w_down are summed over tp."""
     compute = c.compute_dtype
     B, T = h.shape[:2]
+    tp = 1 if mesh is None else mesh.size("tp")
     attn, mlp = layer["attn"], layer["mlp"]
-    x = _rmsnorm(h, layer["attn_norm"], c.norm_eps)
-    q = (x @ attn["wq"].to(compute)).view(B, T, c.n_heads, c.head_dim)
-    k = (x @ attn["wk"].to(compute)).view(B, T, c.n_kv_heads, c.head_dim)
-    v = (x @ attn["wv"].to(compute)).view(B, T, c.n_kv_heads, c.head_dim)
+
+    def weight(group, name):
+        w = layer[group][name]
+        if mesh is None:
+            return w.to(compute)
+        return gather(w, specs[name], mesh, compute, keep=("tp",))
+
+    def norm(h, name):
+        x = _rmsnorm(h, layer[name], c.norm_eps)
+        return x if mesh is None else copy_to_tp(x, mesh)
+
+    def row_parallel(x, group, name):
+        y = x @ weight(group, name)
+        return y if mesh is None else reduce_from_tp(y, mesh)
+
+    x = norm(h, "attn_norm")
+    q = (x @ weight("attn", "wq")).view(B, T, c.n_heads // tp, c.head_dim)
+    k = (x @ weight("attn", "wk")).view(B, T, c.n_kv_heads // tp,
+                                        c.head_dim)
+    v = (x @ weight("attn", "wv")).view(B, T, c.n_kv_heads // tp,
+                                        c.head_dim)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
     o = flash_attention(q, k, v, causal=True, window=c.sliding_window)
-    h = h + o.reshape(B, T, c.dim) @ attn["wo"].to(compute)
-    x = _rmsnorm(h, layer["mlp_norm"], c.norm_eps)
-    gate = F.silu(x @ mlp["w_gate"].to(compute))
-    up = x @ mlp["w_up"].to(compute)
-    return h + (gate * up) @ mlp["w_down"].to(compute), k, v
+    h = h + row_parallel(o.reshape(B, T, c.dim // tp), "attn", "wo")
+    x = norm(h, "mlp_norm")
+    gate = F.silu(x @ weight("mlp", "w_gate"))
+    up = x @ weight("mlp", "w_up")
+    with _unread_product():
+        down = row_parallel(gate * up, "mlp", "w_down")
+    return h + down, k, v
+
+
+def _whole(params, name, mesh, specs, dtype=None):
+    """A top-level leaf whole on every rank: cast to ``dtype`` where given
+    and, with a mesh, gathered on all its axes (``tok_embed`` and
+    ``lm_head`` over tp and fsdp; the final norm scale is replicated)."""
+    x = params[name]
+    if mesh is None:
+        return x if dtype is None else x.to(dtype)
+    return gather(x, specs[name], mesh, dtype)
+
+
+def mesh_specs(config: LlamaConfig, mesh) -> Dict[str, Any]:
+    """The fitted spec of each leaf on ``mesh`` by its name: top-level
+    leaves as they are stored, layer leaves as one layer's slice (the
+    stacked spec without its layer entry)."""
+    from trainingjob_operator_tpu_torch.parallel import sharding
+
+    rules = sharding_rules()
+    specs = {}
+    for path, shape in sharding.tree_paths(param_shapes(config)):
+        spec = sharding.leaf_spec(path, shape, rules, mesh)
+        name = path.rsplit("/", 1)[-1]
+        specs[name] = spec[1:] if path.startswith("layers/") and \
+            not name.endswith("norm") else spec
+    return specs
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor,
             config: LlamaConfig, *, remat=False, return_kv: bool = False,
-            return_hidden: bool = False):
+            return_hidden: bool = False, mesh=None):
     """Logits for tokens [B, T] -> [B, T, vocab] f32.
 
     With ``return_kv`` returns ``(logits, (k, v))``, k/v the post-rope
@@ -319,24 +456,41 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     hidden states [B, T, D] instead of logits.  The residual stream stays in
     the compute dtype; attention is the flash kernel on the card.  ``remat``
     is one of ``REMAT_POLICIES`` (``_remat_wrap``).
+
+    With a ``mesh`` (``parallel/mesh.py``) ``params`` holds this rank's
+    blocks (``init_params(mesh=...)``) and ``tokens`` its rows: each layer
+    gathers its weights inside its block (``_block``), ``tok_embed`` and
+    ``lm_head`` are gathered whole, and the flash kernel runs on this
+    rank's heads.
     """
     c = config
     compute = c.compute_dtype
     B, T = tokens.shape
-    h = params["tok_embed"].to(compute)[tokens]
+    specs = None
+    layers = params["layers"]
+    if mesh is not None:
+        if return_kv:
+            raise ValueError("return_kv is not supported with a mesh")
+        check_tp(c, mesh.size("tp"))
+        specs = mesh_specs(c, mesh)
+        # The norm scales are replicated: one gradient all-reduce over the
+        # data axes for each stacked leaf.
+        layers = {**layers, **{name: gather(layers[name], specs[name], mesh)
+                               for name in ("attn_norm", "mlp_norm")}}
+    h = _whole(params, "tok_embed", mesh, specs, compute)[tokens]
     pos = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     cos, sin = _rope_tables(pos, c.head_dim, c.rope_theta, compute)
     block = _remat_wrap(_block, remat)
     ks, vs = [], []
-    for layer in unstack_layers(params["layers"], c.n_layers):
-        h, k, v = block(h, layer, cos, sin, c)
+    for layer in unstack_layers(layers, c.n_layers):
+        h, k, v = block(h, layer, cos, sin, c, mesh, specs)
         if return_kv:
             ks.append(k)
             vs.append(v)
-    h = _rmsnorm(h, params["final_norm"], c.norm_eps)
+    h = _rmsnorm(h, _whole(params, "final_norm", mesh, specs), c.norm_eps)
     if return_hidden:
         return h
-    logits = (h @ params["lm_head"].to(compute)).float()
+    logits = (h @ _whole(params, "lm_head", mesh, specs, compute)).float()
     if return_kv:
         return logits, (torch.stack(ks), torch.stack(vs))
     return logits
@@ -364,14 +518,21 @@ def _chunked_ce(h, lm_head, targets, chunk: int, compute):
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-            config: LlamaConfig, *, remat=False, ce_chunk: int = 0):
+            config: LlamaConfig, *, remat=False, ce_chunk: int = 0,
+            mesh=None):
     """Next-token cross-entropy, a scalar f32 tensor; batch: {"tokens":
     [B, T+1]}.  The CE is optax's ``softmax_cross_entropy_with_integer_
     labels`` on f32 logits, averaged over B * T.
 
     ``ce_chunk`` > 0 (dividing T) computes the head and CE in sequence
     chunks (``_chunked_ce``); a chunk that does not divide T raises rather
-    than silently falling back to the whole logits."""
+    than silently falling back to the whole logits.
+
+    With a ``mesh`` the batch is this rank's rows and the loss is the
+    global one: each rank's mean over its rows, divided by the data size
+    and summed over the data axes (``sum_over_data``), whose backward
+    leaves each rank the gradient of its own rows for the leaves'
+    collectives to sum."""
     c = config
     tokens = batch["tokens"]
     T = tokens.shape[1] - 1
@@ -380,12 +541,19 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         if T % ce_chunk != 0:
             raise ValueError(f"ce_chunk={ce_chunk} does not divide seq {T}")
         h = forward(params, tokens[:, :-1], c, remat=remat,
-                    return_hidden=True)
-        return _chunked_ce(h, params["lm_head"], targets, ce_chunk,
-                           c.compute_dtype)
-    logits = forward(params, tokens[:, :-1], c, remat=remat)
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           targets.reshape(-1))
+                    return_hidden=True, mesh=mesh)
+        lm_head = params["lm_head"]
+        if mesh is not None:
+            lm_head = _whole(params, "lm_head", mesh, mesh_specs(c, mesh),
+                             c.compute_dtype)
+        loss = _chunked_ce(h, lm_head, targets, ce_chunk, c.compute_dtype)
+    else:
+        logits = forward(params, tokens[:, :-1], c, remat=remat, mesh=mesh)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               targets.reshape(-1))
+    if mesh is None:
+        return loss
+    return sum_over_data(loss / mesh.data_size(), mesh)
 
 
 def num_params(config: LlamaConfig) -> int:

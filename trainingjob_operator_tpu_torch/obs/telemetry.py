@@ -2,8 +2,9 @@
 ``TelemetryEmitter`` (``obs/telemetry.py``).
 
 One JSON object per line over TCP to the controller's sink, in the same
-records as the JAX emitter: a step record (``emit``), a serving snapshot
-(``emit_serve``) and a request's terminal record (``emit_request``).  The
+records as the JAX emitter: a step record (``emit``), a restore's record
+(``emit_resume``), a serving snapshot (``emit_serve``) and a request's
+terminal record (``emit_request``).  The
 aggregator and the sink are the controller's and are not ported.
 """
 
@@ -91,6 +92,21 @@ class TelemetryEmitter:
             record["ckpt_ms"] = round(ckpt_ms, 3)
         if hbm_bytes is not None:
             record["hbm_bytes"] = hbm_bytes
+        self._send(record)
+
+    def emit_resume(self, restore_ms: float, compile_ms: float,
+                    overlapped: bool, fallback: str = "") -> None:
+        """One restore finished: its wall time, the compile time beside it
+        and whether the two overlapped, and the checkpoint fallback it took
+        ("" on the happy path, then left off the record), for the
+        controller's incident attribution."""
+        if not self._ready():
+            return
+        record = {**self._head(), "resume_restore_ms": round(restore_ms, 3),
+                  "resume_compile_ms": round(compile_ms, 3),
+                  "resume_overlapped": overlapped, "ts": time.time()}
+        if fallback:
+            record["resume_fallback"] = fallback
         self._send(record)
 
     def emit_serve(self, queue_depth: int, active_slots: int, slots: int,

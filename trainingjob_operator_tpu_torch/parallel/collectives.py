@@ -1,0 +1,207 @@
+"""Collectives of a sharded step over the mesh's process groups: the
+counterparts of the JAX package's ``parallel/collectives.py`` (``psum``,
+``pmean``, ``axis_size``), which XLA inserts there and the port calls by
+hand, each as a ``torch.autograd.Function``:
+
+- ``gather`` -- a sharded leaf made whole for its use: the forward casts
+  the local block to the compute dtype and all-gathers it; the backward
+  reduce-scatters the gradient, in the leaf's own dtype (f32 masters), as
+  a sum over the data axes the leaf is split on, takes its own block back
+  on a model axis, and all-reduces over the data axes it is replicated on
+  (a replicated leaf -- a norm scale -- is the case with nothing to
+  gather).
+- ``copy_to_tp`` / ``reduce_from_tp`` -- Megatron's pair around a
+  column- then row-parallel product: identity with an all-reduce of the
+  gradient over tp, and an all-reduce over tp with an identity backward.
+- ``sum_over_data`` -- a per-rank loss summed over the data axes (each
+  rank's loss is its rows' mean divided by the data size, so the sum is
+  the global mean), with an identity backward: every rank's graph gets the
+  gradient of its own rows, and the leaves' collectives sum them.
+
+Only ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
+``all_reduce`` are used.  Each call counts one launch
+(``collective_counts``).
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from trainingjob_operator_tpu_torch.parallel.mesh import DATA_AXES
+from trainingjob_operator_tpu_torch.parallel.sharding import Spec, axes_of
+
+_counts = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+
+
+def collective_counts() -> Dict[str, int]:
+    """Collective launches since the last ``reset_collective_counts``."""
+    return dict(_counts)
+
+
+def reset_collective_counts() -> None:
+    for key in _counts:
+        _counts[key] = 0
+
+
+def _all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim``, contiguous: gathered as
+    [size, *x.shape] and flattened into ``dim`` (a copy only where ``dim``
+    is not the leading dim and ``size`` > 1), so that the product reading
+    it sees the layout it would see without a mesh."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+    # torch 2.13 deprecates the *_tensor spellings for *_single, which
+    # older releases lack.
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x, group=group)
+    _counts["all_gather"] += 1
+    out = out.view((size,) + tuple(x.shape))
+    return out.movedim(0, dim).flatten(dim, dim + 1).contiguous()
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group,
+                    size: int) -> torch.Tensor:
+    """This rank's part along ``dim`` of the ranks' ``x`` summed: the
+    adjoint of ``_all_gather``."""
+    import torch.distributed as dist
+
+    parts = x.unflatten(dim, (size, x.shape[dim] // size)).movedim(dim, 0)
+    out = x.new_empty(parts.shape[1:])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, parts.contiguous().flatten(0, 1),
+                                   group=group)
+    _counts["reduce_scatter"] += 1
+    return out
+
+
+def _all_reduce(x: torch.Tensor, group, fresh: bool = False) -> torch.Tensor:
+    """The sum over ``group`` of ``x``: in place where ``x`` is ``fresh``
+    (made by the caller and read by no one else), else into a copy (the
+    input may be a tensor a selective checkpoint keeps, or a gradient
+    autograd hands to others too)."""
+    import torch.distributed as dist
+
+    out = x.contiguous() if fresh else x.clone(
+        memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    _counts["all_reduce"] += 1
+    return out
+
+
+#: One gather step: (dim, axis) -- all-gather ``dim`` over ``axis``.
+Step = Tuple[int, str]
+
+
+def gather_steps(spec: Spec, keep: Sequence[str] = ()) -> List[Step]:
+    """The all-gathers that make a leaf of fitted ``spec`` whole except on
+    the axes in ``keep``, in forward order: on each dim its minor axis
+    first, so that each gather concatenates blocks that are adjacent in
+    the leaf."""
+    steps = []
+    for dim, entry in enumerate(spec):
+        for axis in reversed(axes_of(entry)):
+            if axis not in keep:
+                steps.append((dim, axis))
+    return steps
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, steps, reduce_axes, dtype):
+        ctx.mesh, ctx.steps, ctx.reduce_axes = mesh, steps, reduce_axes
+        ctx.master = x.dtype
+        # A new tensor even where there is nothing to cast or gather: a
+        # Function's output must not be its input.
+        y = x.view_as(x) if dtype in (None, x.dtype) else x.to(dtype)
+        for dim, axis in steps:
+            y = _all_gather(y, dim, mesh.group(axis), mesh.size(axis))
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        g = grad.to(ctx.master, copy=True)
+        for dim, axis in reversed(ctx.steps):
+            size = mesh.size(axis)
+            if axis in DATA_AXES:
+                g = _reduce_scatter(g, dim, mesh.group(axis), size)
+            else:
+                step = g.shape[dim] // size
+                g = g.narrow(dim, mesh.coord(axis) * step, step)
+        for axis in ctx.reduce_axes:
+            g = _all_reduce(g, mesh.group(axis), fresh=True)
+        return g, None, None, None, None
+
+
+def gather(x: torch.Tensor, spec: Spec, mesh,
+           dtype: Optional[torch.dtype] = None,
+           keep: Sequence[str] = ()) -> torch.Tensor:
+    """The leaf ``x`` (this rank's block under the fitted ``spec``) cast to
+    ``dtype`` and all-gathered on every axis of its spec but those in
+    ``keep``.  Its gradient comes back summed over every data axis of the
+    mesh: reduce-scattered over those the leaf is split on, all-reduced
+    over the others.  On a gathered model axis (tp) the ranks' gradients
+    are equal, and each takes its own block."""
+    split = {a for entry in spec for a in axes_of(entry)}
+    reduce_axes = tuple(a for a in DATA_AXES
+                        if a in mesh.sizes and a not in split)
+    return _Gather.apply(x, mesh, gather_steps(spec, keep), reduce_axes,
+                         dtype)
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mesh.group("tp")), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _all_reduce(x, mesh.group("tp"))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's f: the input of column-parallel products, whose gradient
+    is a partial sum on each tp rank."""
+    return _CopyToTp.apply(x, mesh)
+
+
+def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's g: the partial products of a row-parallel product summed
+    over tp."""
+    return _ReduceFromTp.apply(x, mesh)
+
+
+class _SumOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        for axis in DATA_AXES:
+            if axis in mesh.sizes:
+                x = _all_reduce(x, mesh.group(axis))
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the data axes; identity backward."""
+    return _SumOverData.apply(x, mesh)

@@ -1,0 +1,140 @@
+"""The device mesh of a multi-process job: own copy of the JAX package's
+``parallel/mesh.py`` (axis order, ``MeshSpec``, the arithmetic of
+``mesh_from_rendezvous``), built on ``torch.distributed``'s
+``DeviceMesh``.
+
+One process drives one card, so the mesh's size is the process group's
+world size.  The axes, in DCN-outermost order:
+
+- ``dp``   -- data parallel across slices; gradients all-reduce.
+- ``fsdp`` -- data parallel whose ranks each hold a block of every
+              parameter and its optimizer state; layers are gathered one at
+              a time, gradients reduce-scattered.
+- ``tp``   -- tensor (Megatron) parallel: heads and ffn columns split.
+- ``pp``, ``sp``, ``ep`` -- pipeline, sequence and expert axes; the port's
+              model refuses them above 1.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+#: DCN-outermost order, as in the JAX package.
+AXIS_ORDER = ("dp", "pp", "fsdp", "tp", "sp", "ep")
+#: The data axes: a batch's rows are split over them, major first.
+DATA_AXES = ("dp", "fsdp")
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """Axis sizes, in DCN-outermost order."""
+
+    axes: Tuple[Tuple[str, int], ...]
+
+    @classmethod
+    def of(cls, **sizes: int) -> "MeshSpec":
+        extra = set(sizes) - set(AXIS_ORDER)
+        if extra:
+            raise ValueError(f"unknown mesh axes {sorted(extra)}; "
+                             f"known: {AXIS_ORDER}")
+        return cls(tuple((name, int(sizes[name])) for name in AXIS_ORDER
+                         if name in sizes and sizes[name] > 0))
+
+    @property
+    def names(self) -> Tuple[str, ...]:
+        return tuple(n for n, _ in self.axes)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(s for _, s in self.axes)
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        """Axis name -> size (``jax.sharding.Mesh.shape``)."""
+        return dict(self.axes)
+
+    def size(self) -> int:
+        return math.prod(self.shape) if self.axes else 1
+
+
+def mesh_spec_from_rendezvous(rdv, model_parallel: int = 1,
+                              sequence_parallel: int = 1,
+                              expert_parallel: int = 1,
+                              pipeline_parallel: int = 1,
+                              fsdp: bool = True) -> MeshSpec:
+    """The standard mesh of the worker's job, as the JAX
+    ``mesh_from_rendezvous`` derives it, over ``rdv.num_processes`` cards:
+    data = world / (tp sp ep pp), dp = ``num_slices``, fsdp = data / dp
+    (or dp = data without fsdp); the same ``ValueError``s."""
+    n = max(rdv.num_processes, 1)
+    inner = (model_parallel * sequence_parallel * expert_parallel
+             * pipeline_parallel)
+    if n % inner != 0:
+        raise ValueError(f"{n} devices not divisible by "
+                         f"tp*sp*ep*pp={inner}")
+    data = n // inner
+    dp = max(rdv.num_slices, 1)
+    if data % dp != 0:
+        raise ValueError(
+            f"data axis {data} not divisible by num_slices={dp}; choose "
+            f"tp/sp/ep/pp so each slice holds an equal data shard")
+    if fsdp:
+        return MeshSpec.of(dp=dp, pp=pipeline_parallel, fsdp=data // dp,
+                           tp=model_parallel, sp=sequence_parallel,
+                           ep=expert_parallel)
+    return MeshSpec.of(dp=data, pp=pipeline_parallel, tp=model_parallel,
+                       sp=sequence_parallel, ep=expert_parallel)
+
+
+class Mesh:
+    """A ``DeviceMesh`` with the JAX mesh's names: ``axis_names``,
+    ``sizes`` (name -> size), this rank's coordinate on each axis
+    (``coord``) and the process group along one (``group``)."""
+
+    def __init__(self, spec: MeshSpec, device_mesh):
+        self.spec = spec
+        self.device_mesh = device_mesh
+        self.axis_names = spec.names
+        self.sizes = spec.sizes
+        coords = device_mesh.get_coordinate()
+        self._coords = dict(zip(spec.names, coords))
+        self._groups = {name: device_mesh.get_group(name)
+                        for name in spec.names}
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 for an absent axis)."""
+        return self._coords.get(axis, 0)
+
+    def size(self, axis: str) -> int:
+        """The size of ``axis`` (1 for an absent axis)."""
+        return self.sizes.get(axis, 1)
+
+    def group(self, axis: str):
+        return self._groups[axis]
+
+    def data_size(self) -> int:
+        """Ranks holding distinct batch rows: the product of the data
+        axes."""
+        return math.prod(self.size(a) for a in DATA_AXES)
+
+    def data_index(self) -> int:
+        """This rank's position among them (dp major, as the JAX batch
+        spec ``P(("dp", "fsdp"))`` lays the rows out)."""
+        return self.coord("dp") * self.size("fsdp") + self.coord("fsdp")
+
+
+def make_mesh(spec: MeshSpec, device_type: str) -> Mesh:
+    """The ``DeviceMesh`` of ``spec`` over the process group's ranks
+    (``init_device_mesh``, axis names as in JAX); its size must equal the
+    world size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size()
+    if spec.size() != world:
+        raise ValueError(f"mesh {dict(spec.axes)} needs {spec.size()} "
+                         f"devices, have {world}")
+    return Mesh(spec, init_device_mesh(device_type, spec.shape,
+                                       mesh_dim_names=spec.names))

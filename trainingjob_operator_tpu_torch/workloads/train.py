@@ -1,5 +1,5 @@
-"""Single-card training plumbing for the port: own copy of the JAX
-package's ``workloads/train.py``.
+"""Training plumbing for the port: own copy of the JAX package's
+``workloads/train.py``.
 
 Gradient accumulation (``accumulated_value_and_grad``), batch geometry
 (``round_global_batch``), the batch sources (``build_batch_sources``),
@@ -8,7 +8,8 @@ Gradient accumulation (``accumulated_value_and_grad``), batch geometry
 a tree ``{"count", "mu", "nu"}``), checkpoints (``CheckpointState``: step
 directories, the resume image and their fallback ladder), the preemption
 handler (``GracefulShutdown``), the step profiler and telemetry
-(``StepProfiler``) and the step loop (``run_elastic_loop`` at width 1).
+(``StepProfiler``) and the step loop (``run_elastic_loop``, run by every
+process of a job alike).
 
 Parameters are a nested dict of tensors (the ``models/llama.py`` tree);
 where JAX returns new trees, the port updates the leaves in place.
@@ -17,9 +18,12 @@ The durable checkpoint format is the port's own, since orbax is JAX's: a
 step directory ``<path>/<step>/`` holds one ``torch.save`` file per
 top-level item (``params.pt``, ``opt_state.pt``, ``step.pt``), written
 under a temporary name and committed by ``os.replace``; the newest 2 are
-kept (orbax ``max_to_keep=2``).  Beside them, ``resume-image.bin`` is the
-JAX package's container: ``pickle((step, tree))`` of numpy leaves and a
-sha256 footer.  A JAX (orbax) checkpoint cannot be read by the port.
+kept (orbax ``max_to_keep=2``).  A sharded job's step directory holds
+instead one ``shard-<rank>.pt`` per process: its blocks and their global
+index ranges (``ShardLayout``), read back at any width.  Beside them,
+``resume-image.bin`` (one process only) is the JAX package's container:
+``pickle((step, tree))`` of numpy leaves and a sha256 footer.  A JAX
+(orbax) checkpoint cannot be read by the port.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import logging
+import math
 import os
 import pickle
 import shutil
@@ -212,9 +217,14 @@ class CheckpointState:
     #: Committed steps kept (orbax ``max_to_keep``).
     KEEP = 2
 
-    def __init__(self, directory: str, value: Dict[str, Any]):
+    def __init__(self, directory: str, value: Dict[str, Any],
+                 layout: Optional["ShardLayout"] = None):
         self.value = value
         self._dir = directory
+        self.layout = layout
+        #: The last classified fallback of the restore that made this
+        #: state ("" on the happy path): the resume record's ``fallback``.
+        self.fallback = ""
         self._cv = threading.Condition()
         self._writer: Optional[threading.Thread] = None
         self._pending: Optional[tuple] = None
@@ -230,7 +240,9 @@ class CheckpointState:
 
     @classmethod
     def restore_or_init(cls, rdv, init_value: Dict[str, Any],
-                        subdir: Optional[str] = None) -> "CheckpointState":
+                        subdir: Optional[str] = None,
+                        layout: Optional["ShardLayout"] = None
+                        ) -> "CheckpointState":
         """The newest committed step under the worker's path, restored onto
         ``init_value``'s devices and dtypes, or ``init_value`` itself where
         there is none.  The path is ``<checkpoint_dir>/<subdir>`` (one path
@@ -240,37 +252,63 @@ class CheckpointState:
         Tensor leaves of ``init_value`` are the template: a checkpoint of
         another structure or shape fails here, not in a step.  A top-level
         item that is ``ckpt_placeholder()`` is not read at all.  A full
-        restore tries the resume image first, then the committed steps,
-        newest first (``_restore_with_fallback``)."""
-        directory = rdv.checkpoint_dir
-        if not directory:
-            return cls("", init_value)
-        if subdir is not None:
-            path = os.path.join(os.path.abspath(directory), subdir)
-        else:
-            path = os.path.join(os.path.abspath(directory),
-                                rdv.replica_name or "worker",
-                                str(rdv.replica_index))
+        restore tries the resume image first (one process only), then the
+        committed steps, newest first (``_restore_with_fallback``).
+
+        With a ``layout`` the template's leaves are this process's blocks
+        of the job's, and saves write them as one shard of the step
+        (``ShardLayout``).  A restore, with or without one, reads the
+        ranges it needs from whatever the step holds: the shards of any
+        width, or the single-process files."""
+        path = _checkpoint_path(rdv, subdir)
+        if not path:
+            return cls("", init_value, layout)
         os.makedirs(path, exist_ok=True)
         steps = committed_steps(path)
         if not steps:
-            return cls(path, init_value)
+            return cls(path, init_value, layout)
         latest = steps[0]
+        blocks = layout.blocks if layout is not None else {}
         skip = [k for k, v in init_value.items() if v is _PLACEHOLDER]
+        reasons: List[str] = []
         if skip:
             template = {k: v for k, v in init_value.items() if k not in skip}
-            restored = _read_step(path, latest, template)
+            restored = _read_step(path, latest, template, blocks)
             for k in skip:
                 restored[k] = _PLACEHOLDER
         else:
-            restored = _load_resume_image(path, latest, init_value)
+            restored = None
+            if layout is None or layout.world == 1:
+                restored = _load_resume_image(path, latest, init_value,
+                                              reasons)
             if restored is None:
-                restored = _restore_with_fallback(path, latest, init_value)
-        return cls(path, restored)
+                restored = _restore_with_fallback(path, latest, init_value,
+                                                  blocks, reasons)
+        state = cls(path, restored, layout)
+        state.fallback = reasons[-1] if reasons else ""
+        return state
+
+    @staticmethod
+    def has_checkpoint(rdv, subdir: Optional[str] = None) -> bool:
+        """Whether ``restore_or_init`` would restore a committed step (then
+        the values of its template are never read, only their shapes,
+        dtypes and devices)."""
+        path = _checkpoint_path(rdv, subdir)
+        return bool(path and committed_steps(path))
 
     def snapshot_mode(self) -> bool:
-        """True when saves take the snapshot-donate pipeline."""
-        return os.environ.get(constants.CKPT_SNAPSHOT_ENV, "1") != "0"
+        """True when saves take the snapshot-donate pipeline: not across
+        processes, whose shards commit together on the step loop."""
+        return (os.environ.get(constants.CKPT_SNAPSHOT_ENV, "1") != "0"
+                and (self.layout is None or self.layout.world == 1))
+
+    def _write_files(self, step: int, host_value: Dict[str, Any],
+                     cancel: Optional[threading.Event] = None) -> None:
+        if self.layout is None:
+            _write_step(self._dir, step, host_value, self.KEEP, cancel)
+        else:
+            _write_shard(self._dir, step, host_value, self.KEEP, self.layout,
+                         cancel)
 
     def save(self, value: Dict[str, Any], wait: bool = False,
              tracer: Any = None, trace_parent: Any = None) -> float:
@@ -283,10 +321,11 @@ class CheckpointState:
         committed steps stay monotonic).  A writer failure is raised from
         the next ``save()`` or ``finalize()``.
 
-        Direct mode (``wait=True`` or ``TRAININGJOB_CKPT_SNAPSHOT=0``):
-        the write and commit happen here; in snapshot mode a waited save
-        also writes the resume image, so a preemption checkpoint resumes
-        by the fast path.  A waited save supersedes the writer's older
+        Direct mode (``wait=True``, ``TRAININGJOB_CKPT_SNAPSHOT=0``, or
+        a layout of more than one process, every one of which must call
+        ``save``): the write and commit happen here; in snapshot mode a
+        waited save also writes the resume image, so a preemption
+        checkpoint resumes by the fast path.  A waited save supersedes the writer's older
         snapshot: a pending one is dropped and the one in flight is given
         up at its next file (the JAX package waits for it), so a
         preemption writes one state, not two, inside the shutdown
@@ -308,7 +347,7 @@ class CheckpointState:
             with _span(tracer, "ckpt.write", parent=trace_parent,
                        step=step):
                 host_value = _snapshot_to_host(value)
-                _write_step(self._dir, step, host_value, self.KEEP)
+                self._write_files(step, host_value)
             with self._cv:
                 self.committed_step = step
             if self.snapshot_mode():
@@ -358,8 +397,7 @@ class CheckpointState:
     def _write(self, step: int, host_value: Dict[str, Any], tracer: Any,
                parent: Any) -> None:
         with _span(tracer, "ckpt.write", parent=parent, step=step):
-            _write_step(self._dir, step, host_value, self.KEEP,
-                        self._cancel)
+            self._write_files(step, host_value, self._cancel)
         with self._cv:
             self.committed_step = step
         # After the commit, so the image is never newer than the step
@@ -388,6 +426,19 @@ class CheckpointState:
         """Wait for the background write in flight; call before exit."""
         if self._dir:
             self._drain()
+
+
+def _checkpoint_path(rdv, subdir: Optional[str]) -> str:
+    """The worker's checkpoint path ("" without a checkpoint root):
+    ``<checkpoint_dir>/<subdir>``, or ``<checkpoint_dir>/<replica>/<index>``
+    without a subdir."""
+    directory = rdv.checkpoint_dir
+    if not directory:
+        return ""
+    if subdir is not None:
+        return os.path.join(os.path.abspath(directory), subdir)
+    return os.path.join(os.path.abspath(directory),
+                        rdv.replica_name or "worker", str(rdv.replica_index))
 
 
 def _span(tracer: Any, name: str, parent: Any = None, **attrs: Any):
@@ -449,25 +500,41 @@ def committed_steps(path: str) -> List[int]:
                   reverse=True)
 
 
-def _write_step(path: str, step: int, host_value: Dict[str, Any],
-                keep: int, cancel: Optional[threading.Event] = None) -> None:
-    """Write ``host_value`` as step directory ``<path>/<step>`` (one
-    ``torch.save`` file per top-level item) under a temporary name,
-    commit it by ``os.replace``, then drop all but the ``keep`` newest
-    committed steps.  A step written again replaces the old directory.
-    Once ``cancel`` is set, the write stops before its next file, removes
-    what it wrote and raises ``_Superseded``."""
+class ShardLayout:
+    """A process's place in a sharded checkpoint: its ``rank`` of
+    ``world`` and, for each tensor leaf of its state tree (by the tree's
+    keys), the block it holds: ``(global shape, ((start, stop), ...))``
+    (``parallel/sharding.py`` ``Block``).  A leaf without a block is
+    whole."""
+
+    def __init__(self, rank: int, world: int, blocks: Dict[str, Any]):
+        self.rank, self.world, self.blocks = rank, world, blocks
+
+
+def _write_dir(path: str, step: int, files: Dict[str, Any], keep: int,
+               cancel: Optional[threading.Event] = None) -> None:
+    """Write ``files`` (name -> object, one ``torch.save`` each) as step
+    directory ``<path>/<step>`` under a temporary name, then commit it
+    (``_commit``).  Once ``cancel`` is set, the write stops before its next
+    file, removes what it wrote and raises ``_Superseded``."""
     tmp = os.path.join(path, f".tmp-{step}-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     try:
-        for key, item in host_value.items():
+        for name, item in files.items():
             _check(cancel)
-            torch.save(item, os.path.join(tmp, f"{key}.pt"))
+            torch.save(item, os.path.join(tmp, name))
         _check(cancel)
     except _Superseded:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+    _commit(path, step, tmp, keep)
+
+
+def _commit(path: str, step: int, tmp: str, keep: int) -> None:
+    """Make the written directory ``tmp`` step ``step`` by ``os.replace``
+    (a step written again replaces the old directory), then drop all but
+    the ``keep`` newest committed steps."""
     final = os.path.join(path, str(step))
     old = None
     if os.path.exists(final):
@@ -480,40 +547,157 @@ def _write_step(path: str, step: int, host_value: Dict[str, Any],
         shutil.rmtree(os.path.join(path, str(stale)), ignore_errors=True)
 
 
-def _onto(template: Any, loaded: Any, where: str = "") -> Any:
-    """``loaded`` (torch or numpy leaves) in the template's structure, each
-    tensor leaf on the template leaf's device and in its dtype.  Raises
-    ``ValueError`` where the keys or a shape differ."""
-    if isinstance(template, dict):
-        if not isinstance(loaded, dict) or set(loaded) != set(template):
-            got = sorted(loaded) if isinstance(loaded, dict) else \
-                type(loaded).__name__
-            raise ValueError(f"checkpoint structure at {where or '/'}: "
-                             f"{got} != template {sorted(template)}")
-        return {k: _onto(t, loaded[k], f"{where}/{k}")
-                for k, t in template.items()}
-    if isinstance(template, torch.Tensor):
-        x = loaded
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        if not isinstance(x, torch.Tensor) or tuple(x.shape) != tuple(
-                template.shape):
-            shape = tuple(getattr(x, "shape", ()))
-            raise ValueError(f"checkpoint leaf {where}: shape {shape} != "
-                             f"template {tuple(template.shape)}")
-        return x.to(device=template.device, dtype=template.dtype)
-    return loaded
+def _write_step(path: str, step: int, host_value: Dict[str, Any],
+                keep: int, cancel: Optional[threading.Event] = None) -> None:
+    """The single-process format: one ``<key>.pt`` per top-level item of
+    ``host_value`` in step directory ``<path>/<step>`` (``_write_dir``)."""
+    _write_dir(path, step, {f"{key}.pt": item
+                            for key, item in host_value.items()},
+               keep, cancel)
 
 
-def _read_step(path: str, step: int, template: Dict[str, Any]
-               ) -> Dict[str, Any]:
-    """The top-level items of ``template`` from step directory ``step``
-    (``torch.load(weights_only=True)``), onto the template."""
+def _shard_name(rank: int) -> str:
+    return f"shard-{rank}.pt"
+
+
+def _write_shard(path: str, step: int, host_value: Dict[str, Any],
+                 keep: int, layout: ShardLayout,
+                 cancel: Optional[threading.Event] = None) -> None:
+    """The sharded format: each process writes ``shard-<rank>.pt``, its
+    blocks with their global index ranges (``ShardLayout``), into the
+    step's shared temporary directory; rank 0 commits the step only after
+    a barrier every rank passes once its shard is in place, so a step that
+    lacks a shard is never committed.  Alone (world 1) a process writes
+    and commits as ``_write_dir`` does."""
+    payload = {"world": layout.world, "rank": layout.rank,
+               "value": host_value, "blocks": layout.blocks}
+    if layout.world == 1:
+        _write_dir(path, step, {_shard_name(0): payload}, keep, cancel)
+        return
+    import torch.distributed as dist
+
+    tmp = os.path.join(path, f".tmp-{step}")
+    if layout.rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    dist.barrier()
+    target = os.path.join(tmp, _shard_name(layout.rank))
+    torch.save(payload, f"{target}.part")
+    os.replace(f"{target}.part", target)
+    dist.barrier()
+    if layout.rank == 0:
+        _commit(path, step, tmp, keep)
+    # No rank saves or restores again before the commit is done.
+    dist.barrier()
+
+
+def _step_pieces(path: str, step: int, keys) -> List[tuple]:
+    """What step directory ``step`` holds, as (value tree, blocks tree)
+    pieces: one per shard of the sharded format (every rank of the world
+    it was written at must be there), or one whole piece of the
+    single-process format's ``keys``."""
     d = os.path.join(path, str(step))
-    return {key: _onto(t, torch.load(os.path.join(d, f"{key}.pt"),
-                                     map_location="cpu", weights_only=True),
-                       key)
-            for key, t in template.items()}
+    names = sorted(n for n in os.listdir(d)
+                   if n.startswith("shard-") and n.endswith(".pt"))
+    if not names:
+        return [({key: torch.load(os.path.join(d, f"{key}.pt"),
+                                  map_location="cpu", weights_only=True)
+                  for key in keys}, {})]
+    shards = [torch.load(os.path.join(d, n), map_location="cpu",
+                         weights_only=True, mmap=True) for n in names]
+    world = shards[0]["world"]
+    ranks = sorted(sh["rank"] for sh in shards)
+    if ranks != list(range(world)) or any(sh["world"] != world
+                                          for sh in shards):
+        raise ValueError(f"step {step} holds the shards of ranks {ranks}, "
+                         f"not all {world}")
+    return [(sh["value"], sh["blocks"]) for sh in shards]
+
+
+def _assemble(template: Any, blocks: Any, pieces: List[tuple],
+              where: str = "") -> Any:
+    """The template's leaves from ``pieces`` ((value, blocks) trees): each
+    tensor leaf is this process's block (``blocks``; whole where absent),
+    copied together from the overlapping blocks of the pieces, on the
+    template leaf's device and in its dtype.  Raises ``ValueError`` where
+    the keys or a global shape differ, or the pieces do not cover the
+    block."""
+    if isinstance(template, dict):
+        for value, _ in pieces:
+            if not isinstance(value, dict) or set(value) != set(template):
+                got = sorted(value) if isinstance(value, dict) else \
+                    type(value).__name__
+                raise ValueError(f"checkpoint structure at {where or '/'}: "
+                                 f"{got} != template {sorted(template)}")
+        blocks = blocks or {}
+        return {k: _assemble(t, blocks.get(k),
+                             [(v[k], (b or {}).get(k)) for v, b in pieces],
+                             f"{where}/{k}")
+                for k, t in template.items()}
+    if not isinstance(template, torch.Tensor):
+        return pieces[0][0]
+
+    def whole(x):
+        return tuple(x.shape), tuple((0, n) for n in x.shape)
+
+    shape, mine = blocks or whole(template)
+    found = []
+    for value, block in pieces:
+        if isinstance(value, np.ndarray):
+            value = torch.from_numpy(value)
+        if not isinstance(value, torch.Tensor):
+            raise ValueError(f"checkpoint leaf {where}: {type(value).__name__}"
+                             f" != template {tuple(shape)}")
+        their_shape, theirs = block or whole(value)
+        if tuple(their_shape) != tuple(shape):
+            raise ValueError(f"checkpoint leaf {where}: shape "
+                             f"{tuple(their_shape)} != template "
+                             f"{tuple(shape)}")
+        if tuple(theirs) == tuple(mine):
+            # A piece that is the block itself (the same width, or one
+            # process): no assembly.
+            return value.to(device=template.device, dtype=template.dtype)
+        found.append((value, theirs))
+    out = torch.empty(template.shape, dtype=template.dtype)
+    seen, covered = set(), 0
+    for value, theirs in found:
+        # The blocks of one layout are equal or disjoint: a replicated
+        # block is copied once.
+        if tuple(theirs) in seen:
+            continue
+        seen.add(tuple(theirs))
+        lo = [max(a, c) for (a, _), (c, _) in zip(mine, theirs)]
+        hi = [min(b, d) for (_, b), (_, d) in zip(mine, theirs)]
+        if any(l_ >= h for l_, h in zip(lo, hi)):
+            continue
+        dst = tuple(slice(l_ - a, h - a) for l_, h, (a, _) in
+                    zip(lo, hi, mine))
+        src = tuple(slice(l_ - c, h - c) for l_, h, (c, _) in
+                    zip(lo, hi, theirs))
+        out[dst] = value[src]
+        covered += math.prod(h - l_ for l_, h in zip(lo, hi))
+    if covered != out.numel():
+        raise ValueError(f"checkpoint leaf {where}: the step covers "
+                         f"{covered} of its {out.numel()} elements")
+    return out.to(template.device)
+
+
+def _onto(template: Any, loaded: Any, where: str = "") -> Any:
+    """``loaded`` (torch or numpy leaves, whole) in the template's
+    structure, each tensor leaf on the template leaf's device and in its
+    dtype.  Raises ``ValueError`` where the keys or a shape differ."""
+    return _assemble(template, None, [(loaded, None)], where)
+
+
+def _read_step(path: str, step: int, template: Dict[str, Any],
+               blocks: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The top-level items of ``template`` from step directory ``step``
+    (``torch.load(weights_only=True)``), each leaf this process's block
+    (``blocks``; whole where absent) assembled from what the step holds
+    (``_step_pieces``)."""
+    pieces = [({k: v[k] for k in template if k in v}, b)
+              for v, b in _step_pieces(path, step, list(template))]
+    return _assemble(template, blocks, pieces)
 
 
 #: The flat host snapshot of the latest committed step, beside the step
@@ -531,9 +715,13 @@ def resume_fastpath_enabled() -> bool:
     return os.environ.get(constants.RESUME_OVERLAP_ENV, "1") != "0"
 
 
-def _note_fallback_metric(metric: str, reason: str) -> None:
-    """Count one classified checkpoint fallback, per reason."""
+def _note_fallback_metric(metric: str, reason: str,
+                          reasons: Optional[List[str]] = None) -> None:
+    """Count one classified checkpoint fallback, per reason, and append the
+    reason to ``reasons`` where given (the resume record's ``fallback``)."""
     METRICS.inc(metric, reason=reason)
+    if reasons is not None:
+        reasons.append(reason)
 
 
 def _image_leaf(x: Any) -> Any:
@@ -593,22 +781,23 @@ def _write_resume_image(path: str, step: int, host_value: Any,
             pass
 
 
-def _load_resume_image(path: str, latest: int, template: Any) -> Any:
+def _load_resume_image(path: str, latest: int, template: Any,
+                       reasons: Optional[List[str]] = None) -> Any:
     """Resume fast path: the state from the image of
     ``_write_resume_image``, onto the template.  Returns None (the caller
     falls back to the step directories) with a classified reason:
     ``missing``, ``corrupt`` (read error, truncation, sha256 mismatch,
     unpickling failure), ``stale`` (the image's step is not ``latest``) or
     ``structure_mismatch`` (the template's keys or shapes differ), counted
-    per reason in ``trainingjob_resume_image_fallbacks_total``.
-    ``TRAININGJOB_CKPT_FAULT=resume_image`` flips one byte of the image
-    after the read, to exercise the corrupt rung."""
+    per reason in ``trainingjob_resume_image_fallbacks_total`` and appended
+    to ``reasons``.  ``TRAININGJOB_CKPT_FAULT=resume_image`` flips one byte
+    of the image after the read, to exercise the corrupt rung."""
     if not resume_fastpath_enabled():
         return None
 
     def fall(reason: str, detail: str = "") -> None:
         _note_fallback_metric("trainingjob_resume_image_fallbacks_total",
-                              reason)
+                              reason, reasons)
         suffix = f" ({detail})" if detail else ""
         print(f"resume: image fallback reason={reason}{suffix}; "
               f"using the step directories", flush=True)
@@ -653,13 +842,17 @@ def _load_resume_image(path: str, latest: int, template: Any) -> Any:
     return restored
 
 
-def _restore_with_fallback(path: str, latest: int, template: Any) -> Any:
+def _restore_with_fallback(path: str, latest: int, template: Any,
+                           blocks: Optional[Dict[str, Any]] = None,
+                           reasons: Optional[List[str]] = None) -> Any:
     """Restore from the committed steps, newest first: ``latest``, then
-    each earlier retained step.  A failed rung is counted in
+    each earlier retained step (``_read_step`` with ``blocks``).  A failed
+    rung -- a step missing a shard among them -- is counted in
     ``trainingjob_ckpt_restore_fallbacks_total`` with reason
     ``corrupt_latest`` (the newest step) or ``corrupt_retained`` (an
-    older one).  ``TRAININGJOB_CKPT_FAULT=corrupt_latest`` fails the newest
-    rung.  When every rung fails, the first error is raised."""
+    older one), and appended to ``reasons``.
+    ``TRAININGJOB_CKPT_FAULT=corrupt_latest`` fails the newest rung.  When
+    every rung fails, the first error is raised."""
     steps = committed_steps(path)
     if latest not in steps:
         steps.insert(0, latest)
@@ -671,7 +864,7 @@ def _restore_with_fallback(path: str, latest: int, template: Any) -> Any:
                 raise ValueError(
                     "injected corrupt checkpoint (TRAININGJOB_CKPT_FAULT="
                     f"corrupt_latest, step {step})")
-            restored = _read_step(path, step, template)
+            restored = _read_step(path, step, template, blocks)
         # A corrupt rung can fail anywhere in the read; classify it and try
         # the next retained step.
         except Exception as exc:
@@ -680,7 +873,7 @@ def _restore_with_fallback(path: str, latest: int, template: Any) -> Any:
             reason = ("corrupt_latest" if step == latest
                       else "corrupt_retained")
             _note_fallback_metric("trainingjob_ckpt_restore_fallbacks_total",
-                                  reason)
+                                  reason, reasons)
             print(f"resume: restore of step {step} failed reason={reason} "
                   f"({type(exc).__name__}: {str(exc)[:200]}); trying "
                   f"previous committed step", flush=True)
@@ -874,7 +1067,9 @@ def run_elastic_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
                      eval_every: int = 0, units_per_step: float = 0.0,
                      flops_per_step: float = 0.0, device="cuda",
                      tracer: Optional[Any] = None, trace_parent: str = ""):
-    """The step loop of the JAX ``run_elastic_loop`` at width 1.
+    """The step loop of the JAX ``run_elastic_loop`` at a fixed width.
+    Every process of a job runs it alike and prints and emits its own
+    lines and records, as the JAX processes do.
 
     ``step_fn(tokens)`` runs one step, updating ``params`` and
     ``opt_state`` in place, and returns the loss; ``batch_at(i)`` is step
@@ -963,6 +1158,21 @@ def run_elastic_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
     return loss, t_start
 
 
+def push_resume_record(restore_s: float, fallback: str = "") -> None:
+    """Send one restore's record to the controller's telemetry sink (a
+    short-lived emitter; nothing without the telemetry env), as the JAX
+    ``_push_resume_record``: the restore's wall time, a compile time of 0
+    and no overlap (eager PyTorch compiles nothing ahead of the first
+    step), and the fallback the restore took."""
+    emitter = TelemetryEmitter()
+    if not emitter.enabled:
+        return
+    try:
+        emitter.emit_resume(restore_s * 1e3, 0.0, False, fallback=fallback)
+    finally:
+        emitter.close()
+
+
 def _maybe_export_trace(tracer) -> None:
     """Write the workload trace (Chrome trace_event JSON) to
     ``$TRAININGJOB_TRACE_DIR/trace-<pid>.json`` when that is set.
@@ -1031,18 +1241,26 @@ def _synthetic_seed(key_base: int, step: int, row: int) -> int:
 
 
 def build_batch_sources(*, prefix: str, vocab_size: int, global_batch: int,
-                        seq: int, synthetic_key: int, device):
+                        seq: int, synthetic_key: int, device,
+                        local_batch: Optional[int] = None, row0: int = 0):
     """(batch_at, eval_batch_at | None, eval_every, eval_batches) from env,
     as the JAX function reads it: ``{P}_DATA`` (.tokens corpus; default
     synthetic), ``{P}_SEED``, ``{P}_EVAL_EVERY`` / ``{P}_EVAL_BATCHES`` /
     ``{P}_EVAL_FRACTION``, with the same startup errors.  ``batch_at(i)``
-    is the [global_batch, seq + 1] int64 batch of step i on ``device``.
+    is this process's rows ``[row0, row0 + local_batch)`` (default: the
+    whole global batch) of step i's [global_batch, seq + 1] int64 batch,
+    on ``device``.
 
-    Both sources are stateless functions of (source, step).  A corpus
-    batch is the JAX package's, byte for byte.  Synthetic tokens come from
-    a ``torch.Generator`` per row, seeded from (key, step, row), so a row
-    is a pure function of its global index; they are not JAX's threefry
-    stream, so the two packages train on different synthetic tokens."""
+    Both sources are stateless functions of (source, step) with no input
+    from the process layout, so every width sees the same global batches.
+    A corpus batch is the JAX package's, byte for byte.  Synthetic tokens
+    come from a ``torch.Generator`` per row, seeded from (key, step, row),
+    so a row is a pure function of its global index; they are not JAX's
+    threefry stream, so the two packages train on different synthetic
+    tokens."""
+    if local_batch is None:
+        local_batch = global_batch
+    rows = range(row0, row0 + local_batch)
     data_path = os.environ.get(f"{prefix}_DATA", "")
     seed = int(os.environ.get(f"{prefix}_SEED", str(synthetic_key)))
     eval_every = int(os.environ.get(f"{prefix}_EVAL_EVERY", "0"))
@@ -1083,17 +1301,18 @@ def build_batch_sources(*, prefix: str, vocab_size: int, global_batch: int,
     def make_batch_at(dataset, key_base):
         if dataset is not None:
             def fetch(i):
-                rows = torch.from_numpy(dataset.batch(i, global_batch, seq))
-                return rows.long().to(device, non_blocking=True)
+                batch = torch.from_numpy(dataset.batch(
+                    i, global_batch, seq, rows=slice(rows.start, rows.stop)))
+                return batch.long().to(device, non_blocking=True)
         else:
             def fetch(i):
                 gen = torch.Generator()
-                rows = []
-                for r in range(global_batch):
+                batch = []
+                for r in rows:
                     gen.manual_seed(_synthetic_seed(key_base, i, r))
-                    rows.append(torch.randint(0, vocab_size, (seq + 1,),
-                                              generator=gen))
-                return torch.stack(rows).to(device, non_blocking=True)
+                    batch.append(torch.randint(0, vocab_size, (seq + 1,),
+                                               generator=gen))
+                return torch.stack(batch).to(device, non_blocking=True)
         return fetch
 
     batch_at = make_batch_at(ds, synthetic_key)
