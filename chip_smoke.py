@@ -82,10 +82,30 @@ script exits non-zero):
    trains to step 6; its losses equal an uninterrupted card run's within
    CROSS_LOSS_RTOL, and its resume record says the image was missing.
 
+13. resize_7b_width: the live rung at phase 9's width, in process: the
+   trainer's loop on phase 9's parameters and batch in an NCCL group of
+   one; after step 4 the phase publishes generation 1 (world [0], the
+   same coordinator address), and ``llama_elastic.resize_cycle`` destroys
+   and forms the group again, rebuilds the mesh and the step, keeps the
+   state on the card (``fallback=0``, ``moved_mb=0``, no checkpoint read)
+   and resumes; the 8 losses equal phase 9's within SHARDED_LOSS_RTOL,
+   the peak within RESIZE_PEAK_GIB of phase 9's; the resize's timings,
+   the step time before and after, the first step after.
+14. resize_ladder_124m: the trainer's entry point at phase 10's settings
+   with a coordinator and the resize channel, the parent publishing
+   generation 1 after the first ``step`` line: rung ``live`` (rc 0);
+   fault ``barrier``: ``checkpoint`` (rc 143), then a restart born into
+   generation 1 resumes; ``barrier,persist``: ``checkpoint`` then
+   ``restart_all`` (rc 143), then a restart resumes from the previous
+   committed step; every run's losses equal phase 10's uninterrupted
+   run's within SHARDED_LOSS_RTOL; the downtime of each rung on the
+   parent's clock.
+
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
-dK/dV, with their launches on the paths driven (the 7B phases 5-9 and the
-124M trainer of phases 10-11 run the bf16 tensor-core kernels, the tiny
+dK/dV, with their launches on the paths driven (the 7B phases 5-9 and 13
+and the 124M trainer of phases 10-11 and 14 run the bf16 tensor-core
+kernels, the tiny
 fp32 phases 3-4 and 12 the f32-FMA ones; a trainer process reports its
 launches when it returns) and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -1289,6 +1309,359 @@ def cross_width_resume(sink, workdir):
             "runs": runs, "launches": launches}
 
 
+#: resize_7b_width: the step after which the phase publishes generation 1,
+#: and how far the peak may stray from sharded_7b_width's (a second copy
+#: of the 8-layer state would add about 8 GiB).
+RESIZE_PUBLISH_AFTER = 4
+RESIZE_PEAK_GIB = 0.5
+
+
+def publish_generation(rdv_dir: str, doc: dict) -> None:
+    """The controller's atomic publish of ``generation.json``."""
+    import os
+
+    os.makedirs(rdv_dir, exist_ok=True)
+    tmp = os.path.join(rdv_dir, ".generation.tmp")
+    with open(tmp, "w", encoding="utf-8") as fh:
+        json.dump(doc, fh)
+    os.replace(tmp, os.path.join(rdv_dir, "generation.json"))
+
+
+def resize_7b_width(torch, llama, llama_elastic, sharded, workdir):
+    """The live rung at 7B width (8 layers), in process: the trainer's
+    loop (``train.run_elastic_loop``) on ``sharded_7b_width``'s parameters
+    and batch, on the mesh path in an NCCL group of one.  After step 4 the
+    phase publishes generation 1 (world [0], one process, the same
+    coordinator address); the loop leaves at that step boundary and
+    ``llama_elastic.resize_cycle`` destroys and forms the group again,
+    rebuilds the mesh and the step, keeps the state on the card and
+    resumes.  Gates: rung ``live``, ``fallback=0``, ``moved_mb=0``, no
+    checkpoint read; the 8 losses equal ``sharded``'s within
+    SHARDED_LOSS_RTOL; the peak within RESIZE_PEAK_GIB of ``sharded``'s;
+    launches and collectives of 8 steps."""
+    import os
+
+    import torch.distributed as dist
+
+    from trainingjob_operator_tpu_torch import ops
+    from trainingjob_operator_tpu_torch.obs.trace import Tracer
+    from trainingjob_operator_tpu_torch.parallel import collectives
+    from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
+    from trainingjob_operator_tpu_torch.workloads import rendezvous, train
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=8)
+    seq, batch, accum, steps, lr = 4096, 2, 2, 8, 3e-4
+    address = f"127.0.0.1:{free_port()}"
+    rdv = rendezvous.Rendezvous(num_processes=1, process_id=0,
+                                coordinator_address=address)
+    rdv_dir = os.path.join(workdir, "rdv7b")
+    device = rendezvous.initialize_distributed(rdv, torch.device("cuda"))
+    losses, step_s, stamps = [], [], []
+    reads = []
+    real_reads = {name: getattr(train, name)
+                  for name in ("_step_pieces", "_load_resume_image")}
+
+    def counted(name):
+        def read(*a, **k):
+            reads.append(name)
+            return real_reads[name](*a, **k)
+        return read
+
+    def step_of(params, opt_state, mesh):
+        step = llama_elastic.make_step_fn(params, cfg, accum=accum, lr=lr,
+                                          remat="none", opt_state=opt_state,
+                                          mesh=mesh)
+
+        def step_fn(tokens):
+            t = time.perf_counter()
+            loss = step(tokens)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t)
+            stamps.append(time.perf_counter())
+            if len(losses) == RESIZE_PUBLISH_AFTER:
+                publish_generation(rdv_dir, {
+                    "generation": 1, "world": [0], "num_processes": 1,
+                    "coordinator": address})
+            return loss
+        return step_fn
+
+    out = io.StringIO()
+    try:
+        mesh = pmesh.make_mesh(pmesh.mesh_spec_from_rendezvous(rdv),
+                               device.type)
+        params = llama.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0), device,
+            master=True, mesh=mesh)
+        for leaf in train.tree_leaves(params):
+            leaf.requires_grad_(True)
+        opt_state = train.AdamW(params, lr).state
+        gen = torch.Generator(device=device).manual_seed(3)
+        host_tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                                    generator=gen, device=device).cpu()
+        ts = llama_elastic.TrainState(
+            rdv=rdv, device=device, mesh=mesh, world=[0], params=params,
+            opt_state=opt_state,
+            state=train.CheckpointState("", {"params": params,
+                                             "opt_state": opt_state,
+                                             "step": 0}))
+        del params, opt_state
+        width = {"step_fn": step_of(ts.params, ts.opt_state, ts.mesh)}
+
+        def rebuild(ts):
+            width["step_fn"] = step_of(ts.params, ts.opt_state, ts.mesh)
+
+        watcher = rendezvous.GenerationWatcher(
+            path=os.path.join(rdv_dir, "generation.json"), birth=0,
+            interval=0.0)
+        tracer = Tracer(enabled=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        collectives.reset_collective_counts()
+        for name in real_reads:
+            setattr(train, name, counted(name))
+        with contextlib.redirect_stdout(out):
+            while True:
+                train.run_elastic_loop(
+                    step_fn=width["step_fn"], batch_at=lambda i: host_tokens,
+                    state=ts.state, params=ts.params,
+                    opt_state=ts.opt_state, steps=steps,
+                    start_step=ts.start_step, ckpt_every=steps,
+                    device=ts.device, resize_watch=watcher, tracer=tracer)
+                if watcher.pending is None:
+                    break
+                width.clear()
+                t_cycle = time.perf_counter()
+                rc = llama_elastic.resize_cycle(
+                    ts, watcher, cfg=cfg, lr=lr, tp=1, rebuild=rebuild,
+                    tracer=tracer)
+                cycle_s = time.perf_counter() - t_cycle
+                if rc is not None:
+                    raise AssertionError(f"resize degraded: {ts.last_resize}")
+        counts = ops.launch_counts()
+        sent = collectives.collective_counts()
+        peak = torch.cuda.max_memory_allocated()
+        group_after = (dist.is_initialized(), dist.get_world_size())
+    finally:
+        for name, fn in real_reads.items():
+            setattr(train, name, fn)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    lines = out.getvalue().splitlines()
+    timing = line_fields(lines, "resize_timing ")
+    rungs = [ln for ln in lines if ln.startswith("resize_rung ")]
+    expect(rungs == ["resize_rung generation=1 rung=live phase=-"]
+           and timing.get("fallback") == "0"
+           and float(timing.get("moved_mb", "nan")) == 0.0
+           and ts.last_resize.get("moved_mb") == 0.0,
+           f"7B-width resize: rungs {rungs}, timing {timing}", lines)
+    expect(f"resized in place: mesh {ts.mesh.sizes}, resuming at step "
+           f"{RESIZE_PUBLISH_AFTER}" in lines and not reads
+           and group_after == (True, 1),
+           f"7B-width resize: checkpoint reads {reads}, group "
+           f"{group_after}", lines)
+    spans = [sp["name"] for tr in reversed(tracer.traces())
+             for sp in tr["spans"] if sp["name"].startswith("resize.")]
+    expect(spans == ["resize.rendezvous", "resize.requod",
+                     "resize.reshard", "resize.compile"],
+           f"resize spans {spans}", lines)
+    want = sharded["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    expect(len(losses) == steps and rel <= SHARDED_LOSS_RTOL,
+           f"7B-width resize: losses {losses} vs sharded {want}", lines)
+    per_step = train_launches(cfg.n_layers, "none", accum, tensor_cores=True)
+    coll = mesh_collectives(cfg.n_layers, accum)
+    expect(counts == {k: n * steps for k, n in per_step.items()}
+           and sent == {k: n * steps for k, n in coll.items()},
+           f"7B-width resize: launches {counts}, collectives {sent}", lines)
+    peak_gib = peak / 2 ** 30
+    expect(abs(peak_gib - sharded["peak_mem_gib"]) <= RESIZE_PEAK_GIB,
+           f"7B-width resize: peak {peak_gib} GiB vs sharded "
+           f"{sharded['peak_mem_gib']}", lines)
+    k = RESIZE_PUBLISH_AFTER
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+    return {"n_layers": cfg.n_layers, "seq": seq, "global_batch": batch,
+            "accum": accum, "remat": "none", "backend": "nccl",
+            "coordinator": address, "published_after_step": k,
+            "resize_timing": {key: float(v) for key, v in timing.items()
+                              if key != "generation"},
+            "resize_phase_ms": ts.last_resize.get("phase_ms"),
+            "resize_cycle_s": cycle_s, "rungs": rungs, "spans": spans,
+            "checkpoint_reads": len(reads), "losses": losses,
+            "loss_rtol": SHARDED_LOSS_RTOL,
+            "loss_max_rel_err_vs_sharded": rel,
+            "losses_equal_sharded": losses == want,
+            "step_s": step_s,
+            "step_s_median_before": median(step_s[1:k]),
+            "step_s_median_after": median(step_s[k + 1:]),
+            "first_step_after_resize_s": step_s[k],
+            "downtime_s": stamps[k] - stamps[k - 1],
+            "peak_mem_gib": peak_gib,
+            "peak_mem_gib_minus_sharded": peak_gib - sharded["peak_mem_gib"],
+            "launches": counts, "collectives": sent}
+
+
+def run_resizing_trainer(env, timeout: float, rdv_dir: str, doc: dict):
+    """One trainer process, as ``run_trainer``, with the parent playing the
+    controller: it publishes ``doc`` once the trainer prints its first
+    ``step`` line.  Returns (exit code, lines, each line's arrival time on
+    the parent's clock, launches or None)."""
+    import re
+    import threading
+
+    proc = subprocess.Popen([sys.executable, "-c", TRAINER], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    lines, stamps, published = [], [], doc is None
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            stamps.append(time.perf_counter())
+            if not published and re.match(r"step \d+/", line):
+                publish_generation(rdv_dir, doc)
+                published = True
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    launches = None
+    for line in lines:
+        if line.startswith("launches "):
+            launches = json.loads(line[len("launches "):])
+    return rc, lines, stamps, launches
+
+
+def resize_ladder_124m(sink, workdir, uninterrupted):
+    """The trainer's entry point at the 124M config (``resume_124m``'s
+    settings) with a coordinator (an NCCL group of one), the resize
+    channel and poll 0, as separate processes; the parent publishes
+    generation 1 after the first ``step`` line.  No fault: rung ``live``,
+    rc 0.  ``barrier``: rung ``checkpoint``, rc 143, and a restart born
+    into generation 1 resumes.  ``barrier,persist``: ``checkpoint`` then
+    ``restart_all``, rc 143, and a restart resumes from the previous
+    committed step.  Every run's losses equal ``uninterrupted``'s (the
+    ``resume_124m`` run) within SHARDED_LOSS_RTOL.  Downtime on the
+    parent's clock: from the ``observed at step`` line to the first step
+    after it (of the same process, or of the restart)."""
+    import os
+    import re
+
+    from trainingjob_operator_tpu_torch.workloads import train
+
+    N = RESUME_STEPS
+    runs, launches = {}, []
+
+    def env_of(job, ckpt, rdv_dir, **extra):
+        env = dict(os.environ)
+        env.update({"LLAMA_CONFIG": "124m", "LLAMA_SEQ": "1024",
+                    "LLAMA_BATCH": "8", "LLAMA_STEPS": str(N),
+                    "LLAMA_CKPT_EVERY": str(RESUME_CKPT_EVERY),
+                    "TRAININGJOB_CHECKPOINT_DIR": ckpt,
+                    "TRAININGJOB_TELEMETRY_ADDR": sink.address,
+                    "TRAININGJOB_NAMESPACE": "smoke",
+                    "TRAININGJOB_NAME": job,
+                    "TRAININGJOB_COORDINATOR_ADDRESS":
+                        f"127.0.0.1:{free_port()}",
+                    "TRAININGJOB_RESIZE_DIR": rdv_dir,
+                    "TRAININGJOB_RESIZE_POLL_S": "0"}, **extra)
+        return env
+
+    def run(job, ckpt, rdv_dir, doc, **extra):
+        rc, lines, stamps, counts = run_resizing_trainer(
+            env_of(job, ckpt, rdv_dir, **extra), 300, rdv_dir, doc)
+        if counts is not None:
+            launches.append(counts)
+        got = {r["step"] + 1: r["loss"] for r in sink.steps(job)}
+        rel = max((abs(got[i] - uninterrupted[i]) / abs(uninterrupted[i])
+                   for i in got), default=float("nan"))
+        expect(bool(got) and rel <= SHARDED_LOSS_RTOL,
+               f"{job}: losses {got} vs {uninterrupted}", lines)
+        runs[job] = {"rc": rc, "losses": got, "loss_max_rel_err": rel,
+                     "losses_equal_uninterrupted":
+                         all(got[i] == uninterrupted[i] for i in got),
+                     "rungs": [ln for ln in lines
+                               if ln.startswith("resize_rung ")],
+                     "resize_timing": line_fields(lines, "resize_timing "),
+                     "first_step_s": float(line_fields(
+                         lines, "recovery_timing first_step_s").get(
+                             "first_step_s", "nan"))}
+        return rc, lines, stamps
+
+    def at(lines, stamps, pattern):
+        for line, t in zip(lines, stamps):
+            m = re.search(pattern, line)
+            if m:
+                return m, t
+        expect(False, f"no line matches {pattern!r}", lines)
+
+    def rungs_of(job):
+        return [re.search(r"rung=(\w+)", ln).group(1)
+                for ln in runs[job]["rungs"]]
+
+    doc = {"generation": 1, "world": [0], "num_processes": 1}
+    downtime = {}
+    # restart_all leaves without waiting for a background save in flight
+    # (as JAX does), so its run saves on the step loop: the step before
+    # the resize is then committed, and the restart resumes from it.
+    for rung, fault, want_rc, want_rungs, snapshot in (
+            ("live", "", 0, ["live"], "1"),
+            ("checkpoint", "barrier", 143, ["checkpoint"], "1"),
+            ("restart_all", "barrier,persist", 143,
+             ["checkpoint", "restart_all"], "0")):
+        job = f"ladder_{rung}"
+        ckpt = os.path.join(workdir, job)
+        rdv_dir = os.path.join(workdir, f"{job}_rdv")
+        rc, lines, stamps = run(job, ckpt, rdv_dir, doc,
+                                TRAININGJOB_RESIZE_FAULT=fault,
+                                TRAININGJOB_CKPT_SNAPSHOT=snapshot)
+        expect(rc == want_rc and rungs_of(job) == want_rungs,
+               f"{job}: exit {rc}, rungs {runs[job]['rungs']}", lines)
+        m, t_seen = at(lines, stamps, r"observed at step (\d+)")
+        k = int(m.group(1))
+        if rung == "live":
+            expect(f"resized in place: mesh {{'dp': 1, 'pp': 1, 'fsdp': 1, "
+                   f"'tp': 1, 'sp': 1}}, resuming at step {k}" in lines
+                   and runs[job]["resize_timing"].get("fallback") == "0"
+                   and sorted(runs[job]["losses"]) == list(range(1, N + 1)),
+                   f"{job}: no live resize", lines)
+            _, t_first = at(lines, stamps, rf"^step {k + 1}/{N} loss .*"
+                                           r"\(first after resume\)")
+            downtime[rung] = t_first - t_seen
+            continue
+        committed = train.committed_steps(os.path.join(ckpt, "llama"))
+        want_step = k if rung == "checkpoint" else max(
+            s for s in committed if s < k)
+        expect(committed[0] == want_step,
+               f"{job}: committed {committed}, observed at {k}", lines)
+        # The operator's restart: born into generation 1, it ignores the
+        # doc that sent its predecessor away.
+        restart = f"{job}_restart"
+        rc2, lines2, stamps2 = run(restart, ckpt, rdv_dir, None,
+                                   TRAININGJOB_RENDEZVOUS_GENERATION="1",
+                                   TRAININGJOB_CKPT_SNAPSHOT=snapshot)
+        expect(rc2 == 0 and f"resumed at step {want_step} (width 1)" in lines2
+               and not runs[restart]["rungs"]
+               and sorted(runs[restart]["losses"])
+               == list(range(want_step + 1, N + 1)),
+               f"{restart}: exit {rc2}", lines2)
+        _, t_first = at(lines2, stamps2, rf"^step {want_step + 1}/{N} loss "
+                                         r".*\(first after resume\)")
+        downtime[rung] = t_first - t_seen
+        runs[job]["resumed_at"] = want_step
+    return {"config": "124m", "seq": 1024, "global_batch": 8, "steps": N,
+            "ckpt_every": RESUME_CKPT_EVERY, "backend": "nccl", "world": 1,
+            "loss_rtol": SHARDED_LOSS_RTOL, "downtime_s": downtime,
+            "runs": runs,
+            "launches": {key: sum(c[key] for c in launches)
+                         for key in launches[0]}}
+
+
 def tiny_equivalence(torch, llama, decode, serve):
     """fp32 tiny config through the kernels: serve == generate, per
     request."""
@@ -1575,6 +1948,16 @@ def main() -> int:
         cross = cross_width_resume(sink, workdir)
         emit({"phase": "cross_width_resume", "device": name,
               "nvidia_smi": smi, **cross})
+        torch.cuda.empty_cache()
+        resized = resize_7b_width(torch, llama, llama_elastic, sharded,
+                                  workdir)
+        emit({"phase": "resize_7b_width", "device": name,
+              "nvidia_smi": smi, **resized})
+        torch.cuda.empty_cache()
+        ladder = resize_ladder_124m(
+            sink, workdir, resumed["runs"]["uninterrupted"]["losses"])
+        emit({"phase": "resize_ladder_124m", "device": name,
+              "nvidia_smi": smi, **ladder})
     finally:
         sink.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1583,7 +1966,7 @@ def main() -> int:
     # paths and the 124M trainer run the bf16 tensor-core kernels, the tiny
     # fp32 ones the f32-FMA kernels.
     paths = [served, generated, trained, remat["attn"], remat["dots"],
-             sharded, resumed, tel, cross, tiny,
+             sharded, resumed, tel, cross, resized, ladder, tiny,
              *tiny_train_runs(tiny_train)]
     launches = {k: sum(p["launches"][k] for p in paths)
                 for k in ops.launch_counts()}

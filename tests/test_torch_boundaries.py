@@ -71,7 +71,8 @@ def test_the_parallel_modules_are_scanned():
     scanned = {p.relative_to(PKG).as_posix() for p in _port_files()
                if PKG in p.parents}
     assert {"parallel/__init__.py", "parallel/mesh.py",
-            "parallel/sharding.py", "parallel/collectives.py"} <= scanned
+            "parallel/sharding.py", "parallel/collectives.py",
+            "parallel/reshard.py"} <= scanned
     assert "trainingjob_operator_tpu_torch.parallel.collectives" in \
         _port_modules()
 
@@ -98,7 +99,7 @@ def test_serve_env_names_agree_with_the_jax_package():
     from trainingjob_operator_tpu_torch import constants as tconst
 
     names = [n for n in dir(tconst) if n.endswith("_ENV")]
-    assert len(names) == 33
+    assert len(names) == 40
     # The multi-process slice's rendezvous names.
     assert {"COORDINATOR_ADDRESS_ENV", "NUM_PROCESSES_ENV",
             "PROCESS_ID_ENV", "SLICE_ID_ENV", "NUM_SLICES_ENV"} <= set(names)
@@ -110,6 +111,10 @@ def test_serve_env_names_agree_with_the_jax_package():
             "REPLICA_NAME_ENV", "REPLICA_INDEX_ENV", "MODEL_FLOPS_ENV",
             "PEAK_FLOPS_ENV", "TRACE_CONTEXT_ENV", "TRACE_DIR_ENV",
             "REPLICA_RESTART_COUNT_ENV", "ELASTIC_REPLICAS_ENV"} <= set(names)
+    # The elastic-resize slice's channel, knobs and fault injection.
+    assert {"RESIZE_DIR_ENV", "RENDEZVOUS_GENERATION_ENV", "RESIZE_POLL_ENV",
+            "RESIZE_FASTPATH_ENV", "RESIZE_LIVE_ENV", "RESIZE_BARRIER_ENV",
+            "RESIZE_FAULT_ENV"} <= set(names)
     for name in names:
         assert getattr(tconst, name) == getattr(jconst, name)
 

@@ -2,7 +2,8 @@
 
 Own copy of the names the JAX package declares in ``api/constants.py``
 (the ``TRAININGJOB_SERVE_*`` knobs, the worker identity and rendezvous the
-operator injects, the checkpoint, profiling, telemetry and trace knobs); the port
+operator injects, the checkpoint, profiling, telemetry and trace knobs,
+the elastic-resize channel); the port
 imports nothing of that package, so the names are repeated here verbatim
 (tests/test_torch_boundaries.py checks they still agree).
 """
@@ -65,3 +66,22 @@ TRACE_CONTEXT_ENV = "TRAININGJOB_TRACE_CONTEXT"
 TRACE_DIR_ENV = "TRAININGJOB_TRACE_DIR"
 # "1" -> structured JSON log lines.
 LOG_JSON_ENV = "TRAININGJOB_LOG_JSON"
+
+# Elastic resize in place (workloads/llama_elastic.py ``resize_cycle``).
+# The directory the controller publishes ``generation.json`` into (the
+# bumped rendezvous generation, the surviving world, its coordinator), and
+# the generation a process was started under: it reacts only to later ones.
+RESIZE_DIR_ENV = "TRAININGJOB_RESIZE_DIR"
+RENDEZVOUS_GENERATION_ENV = "TRAININGJOB_RENDEZVOUS_GENERATION"
+# Seconds between polls of the generation file from the step loop.
+RESIZE_POLL_ENV = "TRAININGJOB_RESIZE_POLL_S"
+# "0": a published generation checkpoints and exits 143 instead of
+# resizing in place.
+RESIZE_FASTPATH_ENV = "TRAININGJOB_RESIZE_FASTPATH"
+# "0": a multi-process job takes the checkpoint rung at once.
+RESIZE_LIVE_ENV = "TRAININGJOB_RESIZE_LIVE"
+# Seconds a rank waits for the new generation's coordinator.
+RESIZE_BARRIER_ENV = "TRAININGJOB_RESIZE_BARRIER_S"
+# Fault injection into the rebootstrap ladder: comma-separated phases
+# (shutdown|barrier|reinit|reshard|persist), each optionally ``phase@N``.
+RESIZE_FAULT_ENV = "TRAININGJOB_RESIZE_FAULT"

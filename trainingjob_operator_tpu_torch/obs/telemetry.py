@@ -3,7 +3,8 @@
 
 One JSON object per line over TCP to the controller's sink, in the same
 records as the JAX emitter: a step record (``emit``), a restore's record
-(``emit_resume``), a serving snapshot (``emit_serve``) and a request's
+(``emit_resume``), a resize rebootstrap's rung (``emit_rendezvous``), a
+serving snapshot (``emit_serve``) and a request's
 terminal record (``emit_request``).  The
 aggregator and the sink are the controller's and are not ported.
 """
@@ -107,6 +108,24 @@ class TelemetryEmitter:
                   "resume_overlapped": overlapped, "ts": time.time()}
         if fallback:
             record["resume_fallback"] = fallback
+        self._send(record)
+
+    def emit_rendezvous(self, total_ms: float, rung: str, reason: str = "",
+                        phase_ms: Optional[Dict[str, float]] = None) -> None:
+        """One rebootstrap of an in-place resize finished or degraded
+        (``llama_elastic.resize_cycle``): the rung taken, its wall time and
+        the wall time of each phase, for the controller's incident
+        attribution.  Sent on success (rung ``live``) and again with the
+        rung fallen to on a degrade: the latest record wins."""
+        if not self._ready():
+            return
+        record = {**self._head(), "rendezvous_ms": round(total_ms, 3),
+                  "rendezvous_rung": rung, "ts": time.time()}
+        if reason:
+            record["rendezvous_reason"] = reason
+        if phase_ms:
+            record["rendezvous_phase_ms"] = {p: round(v, 3)
+                                             for p, v in phase_ms.items()}
         self._send(record)
 
     def emit_serve(self, queue_depth: int, active_slots: int, slots: int,

@@ -88,6 +88,26 @@ def mesh_spec_from_rendezvous(rdv, model_parallel: int = 1,
                        sp=sequence_parallel, ep=expert_parallel)
 
 
+def resized_mesh_spec(n_dev: int, num_slices: int = 1,
+                      model_parallel: int = 1, sequence_parallel: int = 1,
+                      pipeline_parallel: int = 1) -> MeshSpec:
+    """The mesh of a resize to ``n_dev`` cards, as the JAX
+    ``llama_elastic`` resize cycle derives it from a generation doc: data
+    = n_dev / (tp sp pp), dp = ``num_slices`` where it divides the data
+    axis (else 1), fsdp = data / dp.  ``ValueError`` where tp sp pp does
+    not divide ``n_dev``."""
+    inner = model_parallel * sequence_parallel * pipeline_parallel
+    if n_dev <= 0 or n_dev % inner != 0:
+        raise ValueError(f"{n_dev} devices not divisible by "
+                         f"tp*sp*pp={inner}")
+    data = n_dev // inner
+    dp = max(num_slices, 1)
+    if data % dp != 0:
+        dp = 1
+    return MeshSpec.of(dp=dp, pp=pipeline_parallel, fsdp=data // dp,
+                       tp=model_parallel, sp=sequence_parallel)
+
+
 class Mesh:
     """A ``DeviceMesh`` with the JAX mesh's names: ``axis_names``,
     ``sizes`` (name -> size), this rank's coordinate on each axis
@@ -128,7 +148,10 @@ class Mesh:
 def make_mesh(spec: MeshSpec, device_type: str) -> Mesh:
     """The ``DeviceMesh`` of ``spec`` over the process group's ranks
     (``init_device_mesh``, axis names as in JAX); its size must equal the
-    world size."""
+    world size.  A ``Mesh`` holds the sub-groups of the process group it
+    was made on: after the group is destroyed and formed again (an
+    elastic resize), make a new one, and everything that closed over the
+    old one (the step, its collectives) anew."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 

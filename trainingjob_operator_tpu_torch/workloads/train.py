@@ -8,8 +8,9 @@ Gradient accumulation (``accumulated_value_and_grad``), batch geometry
 a tree ``{"count", "mu", "nu"}``), checkpoints (``CheckpointState``: step
 directories, the resume image and their fallback ladder), the preemption
 handler (``GracefulShutdown``), the step profiler and telemetry
-(``StepProfiler``) and the step loop (``run_elastic_loop``, run by every
-process of a job alike).
+(``StepProfiler``), the step loop (``run_elastic_loop``, run by every
+process of a job alike, under ``peer_loss_guard``) and the resize's
+telemetry (``push_rendezvous_record``).
 
 Parameters are a nested dict of tensors (the ``models/llama.py`` tree);
 where JAX returns new trees, the port updates the leaves in place.
@@ -1059,6 +1060,96 @@ class StepProfiler:
         self.emitter.close()
 
 
+#: Substrings identifying transport/collective failures caused by a LOST
+#: PEER (Gloo/gRPC/coordination-service surfaces); a deterministic local bug
+#: (shape error, checkpoint mismatch) matches none of these and must crash
+#: normally so exit-code policy can mark the job Failed instead of
+#: restart-looping it forever.
+_PEER_LOSS_MARKERS = (
+    "gloo", "grpc", "connection reset", "connection refused", "broken pipe",
+    "socket closed", "unavailable", "deadline exceeded", "peer",
+    "coordination service", "barrier", "heartbeat", "disconnect",
+)
+
+
+#: torch.distributed's transport error types (by class name, so that no
+#: import of torch.distributed is needed): a collective or store operation
+#: that lost its peer raises one of them whatever its message says.
+_PEER_LOSS_TYPES = ("DistNetworkError", "DistBackendError")
+
+
+def looks_like_peer_loss(exc: BaseException) -> bool:
+    """Match the exception and its EXPLICIT cause chain: a wrapper (a
+    failed save, a background write) raises from the underlying gloo or
+    NCCL error (``raise X from err``) and the marker often lives only on
+    the cause.  Besides JAX's markers, a node whose type is one of
+    torch.distributed's transport errors (``_PEER_LOSS_TYPES``) matches.
+
+    Implicit context (``__context__``) is followed only from a node that is
+    itself transport-shaped (OSError/ConnectionError/TimeoutError): library
+    code that re-raises inside an ``except`` block around a socket error
+    chains implicitly (no ``from``), and skipping that hop would classify a
+    genuine peer preemption as a local crash.  From any OTHER exception
+    type the implicit context is deliberately NOT followed -- a
+    deterministic local bug raised while HANDLING a transport error would
+    inherit the transport marker and restart-loop forever instead of
+    reaching the exit-code policy as a failure."""
+    io_shaped = (OSError, ConnectionError, TimeoutError)
+    seen = set()
+    node: Optional[BaseException] = exc
+    while node is not None and id(node) not in seen:
+        seen.add(id(node))
+        text = f"{type(node).__name__}: {node}".lower()
+        if any(marker in text for marker in _PEER_LOSS_MARKERS):
+            return True
+        if any(cls.__name__ in _PEER_LOSS_TYPES
+               for cls in type(node).__mro__):
+            return True
+        nxt = node.__cause__
+        if (nxt is None and isinstance(node, io_shaped)
+                and not node.__suppress_context__):
+            # `raise X from None` sets __suppress_context__: the raiser
+            # explicitly disclaimed the context -- honor that, or a
+            # deterministic local bug would restart-loop as 143 again.
+            nxt = node.__context__
+        node = nxt
+    return False
+
+
+class peer_loss_guard:
+    """Context manager around the step loop: a PEER-LOSS-shaped exception
+    in a multi-process job (``dist.is_initialized()`` and a world of more
+    than one) exits 143 via ``os._exit`` (restart-worthy, and no
+    interpreter teardown to hang on a dead peer's threads), as does any
+    exception once SIGTERM was seen.  Covers the collectives outside the
+    step too: a sharded save's barriers die just as loudly when a peer is
+    lost mid-save.  Exceptions that do not look like transport failures
+    propagate (a deterministic bug must reach the exit-code policy as a
+    failure, not crash-loop as 143)."""
+
+    def __init__(self, shutdown: Any = None) -> None:
+        self._shutdown = shutdown
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc is None or exc_type in (KeyboardInterrupt, SystemExit):
+            return False
+        import torch.distributed as dist
+
+        sigterm_seen = (self._shutdown is not None
+                        and self._shutdown.requested)
+        multi = (dist.is_available() and dist.is_initialized()
+                 and dist.get_world_size() > 1)
+        if sigterm_seen or (multi and looks_like_peer_loss(exc)):
+            print(f"distributed section failed ({exc_type.__name__}: "
+                  f"{str(exc)[:300]}); exiting 143 for operator restart",
+                  flush=True)
+            os._exit(GracefulShutdown.EXIT_CODE)
+        return False
+
+
 def run_elastic_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
                      batch_at: Callable[[int], torch.Tensor],
                      state: CheckpointState, params: Dict[str, Any],
@@ -1066,6 +1157,7 @@ def run_elastic_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
                      ckpt_every: int, eval_fn: Optional[Callable] = None,
                      eval_every: int = 0, units_per_step: float = 0.0,
                      flops_per_step: float = 0.0, device="cuda",
+                     resize_watch: Optional[Any] = None,
                      tracer: Optional[Any] = None, trace_parent: str = ""):
     """The step loop of the JAX ``run_elastic_loop`` at a fixed width.
     Every process of a job runs it alike and prints and emits its own
@@ -1083,7 +1175,17 @@ def run_elastic_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
     (``GracefulShutdown``); the end prints the ``ckpt_stall`` summary,
     waits for the last save and logs ``train_done``.  Spans ``train.run``,
     ``train.compile`` (the first step), ``train.step`` and
-    ``train.checkpoint``.
+    ``train.checkpoint``.  The whole loop, saves included, runs under
+    ``peer_loss_guard``: across processes a lost peer exits 143.
+
+    ``resize_watch`` (a ``rendezvous.GenerationWatcher``) arms the resize
+    in place: when the controller publishes a newer generation, the loop
+    drains the step just run (a read of its loss) and leaves at that step
+    boundary with ``resize_watch.pending`` set to the doc and
+    ``resize_watch.resume_step`` to the next step, without waiting for a
+    background save (the caller keeps the live state; its fallback rung
+    finalizes).  With ``TRAININGJOB_RESIZE_FASTPATH=0`` it saves the step
+    and exits 143 instead.
 
     Returns ``(loss, t_start)``, ``t_start`` the wall time after the first
     step (its time is set-up: the kernels build there)."""
@@ -1102,6 +1204,7 @@ def run_elastic_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
     try:
         with tracer.span("train.run", parent=trace_parent,
                          start_step=start_step, steps=steps), \
+                peer_loss_guard(shutdown=shutdown), \
                 Prefetcher(batch_at, start_step, steps,
                            device=device) as batches:
             for i, batch in batches:
@@ -1132,6 +1235,27 @@ def run_elastic_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
                 if shutdown.requested:
                     shutdown.checkpoint_and_exit(
                         lambda: save(i + 1, wait=True))
+                doc = (resize_watch.poll() if resize_watch is not None
+                       else None)
+                if doc is not None:
+                    # Drain the step just dispatched, so that its device
+                    # time is not billed to the resize.
+                    float(loss)
+                    if (os.environ.get(constants.RESIZE_FASTPATH_ENV, "")
+                            == "0"):
+                        print(f"resize: generation {doc['generation']} "
+                              f"observed at step {i+1}; fast path "
+                              f"disabled, checkpointing for operator "
+                              f"restart", flush=True)
+                        shutdown.checkpoint_and_exit(
+                            lambda: save(i + 1, wait=True))
+                    resize_watch.pending = doc
+                    resize_watch.resume_step = i + 1
+                    print(f"resize: generation {doc['generation']} "
+                          f"(world {doc['world']}) observed at step "
+                          f"{i+1}; leaving step loop for in-place reshard",
+                          flush=True)
+                    break
                 if (i + 1) % ckpt_every == 0 or i == steps - 1:
                     print(f"step {i+1}/{steps} loss {float(loss):.4f}",
                           flush=True)
@@ -1147,7 +1271,8 @@ def run_elastic_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
                       f"avg_ms={sum(stalls) / len(stalls):.1f} "
                       f"max_ms={max(stalls):.1f}", flush=True)
             profiler.close()
-            state.finalize()
+            if resize_watch is None or resize_watch.pending is None:
+                state.finalize()
     finally:
         shutdown.uninstall()
     if units_per_step and t_start is not None:
@@ -1169,6 +1294,24 @@ def push_resume_record(restore_s: float, fallback: str = "") -> None:
         return
     try:
         emitter.emit_resume(restore_s * 1e3, 0.0, False, fallback=fallback)
+    finally:
+        emitter.close()
+
+
+def push_rendezvous_record(total_ms: float, rung: str, reason: str = "",
+                           phase_ms: Optional[Dict[str, float]] = None
+                           ) -> None:
+    """Send one resize rebootstrap's outcome (the rung taken, its wall
+    time and each phase's) to the controller's telemetry sink, with a
+    short-lived emitter as ``push_resume_record``; sent on success (rung
+    ``live``) and again on a degrade, so the latest record names the rung
+    that ran."""
+    emitter = TelemetryEmitter()
+    if not emitter.enabled:
+        return
+    try:
+        emitter.emit_rendezvous(total_ms, rung, reason=reason,
+                                phase_ms=phase_ms)
     finally:
         emitter.close()
 
