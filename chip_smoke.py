@@ -34,9 +34,15 @@ script exits non-zero):
    Launches per microbatch of a model of L layers (``train_launches``):
    flash forward L (2 L under "full" and "dots", whose backward re-runs
    it), dQ and dK/dV L, RMSNorm 2 L + 1 (4 L + 1 under every remat).
-5. serve_7b: DecodeService on a seeded random-init Llama-2-7B (bf16, all 32
-   layers); zero stale-KV violations, every request finished, and RMSNorm
-   launched 65 times per decode step and per prefill chunk.
+4a. tiny_moe_equivalence: the MoE tiny config in fp32 at a dropless
+   capacity (capacity_factor = n_experts / experts_per_token): every
+   request of a MoE DecodeService run gets ``moe_decode.generate``'s
+   tokens, and 5 steps of the MoE trainer's step (``moe.loss_fn``, accum
+   1) under each remat policy on the card equal the CPU's, as in phase 4.
+5. serve_7b: DecodeService on a seeded random-init Llama-2-7B (bf16, 16
+   of its 32 layers: the depth cut that keeps the script inside half its
+   limit); zero stale-KV violations, every request finished, and RMSNorm
+   launched 33 times per decode step and per prefill chunk.
 6. generate_7b: a 512-token prompt and 32 greedy steps; the tensor-core
    flash forward is launched once per layer by the prefill.
 7. train_7b_width: the trainer's step (``llama_elastic.make_step_fn``) at
@@ -100,14 +106,34 @@ script exits non-zero):
    committed step; every run's losses equal phase 10's uninterrupted
    run's within SHARDED_LOSS_RTOL; the downtime of each rung on the
    parent's clock.
+15. serve_moe_width, generate_moe_width: phases 5 and 6 on a seeded
+   random-init Mixtral-8x7B (vocab 32000, dim 4096, 32/8 heads, ffn 14336,
+   8 experts, top 2, capacity_factor 1.25, bf16), 16 of its 32 layers
+   (23.48e9 parameters, 43.7 GiB; all 32 need 93.4 GB): the same gates
+   (every flash launch of the prefill on the tensor cores at GQA 32/8),
+   and generate raises the prefill's capacity warning.
+16. train_moe_width: the MoE trainer's step at Mixtral-8x7B widths, 2 of
+   32 layers (f32 masters, gradients and moments: 50.6 GB), seq 4096,
+   global batch 2, remat "none", 8 steps on one batch: the loss falls;
+   per step L launches each of the tensor-core flash forward, dQ and
+   dK/dV and 2 L + 1 RMSNorms; step time, tokens/s, peak memory, a step
+   profile and its split into expert GEMMs, dispatch/combine, the other
+   GEMMs, the kernels and the rest (``gemm_split``).
+17. moe_resume: the MoE trainer's entry point (``python -m
+   ...workloads.moe_pretrain``, MOE_CONFIG=tiny) as processes on one
+   checkpoint directory: uninterrupted, SIGTERM after step 4 (exit 143,
+   the step committed), a restart whose losses equal the uninterrupted
+   run's bit for bit; then the ``generate`` and ``serve`` mains with
+   GEN_FAMILY=moe on the checkpoint.
 
+Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
-dK/dV, with their launches on the paths driven (the 7B phases 5-9 and 13
-and the 124M trainer of phases 10-11 and 14 run the bf16 tensor-core
-kernels, the tiny
-fp32 phases 3-4 and 12 the f32-FMA ones; a trainer process reports its
-launches when it returns) and,
+dK/dV, with their launches on the paths driven (the 7B phases 5-9 and 13,
+the 124M trainer of phases 10-11 and 14 and the Mixtral-width phases
+15-16 run the bf16 tensor-core kernels, the tiny fp32 phases 3-4a and 12
+and the tiny MoE trainer of phase 17 (head dim 16) the f32-FMA ones; a
+trainer process reports its launches when it returns) and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when CUDA is unavailable or the package is not
 beside this script.
@@ -126,6 +152,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 #: The checkout this script sits in (the trainer runs from it).
@@ -200,7 +227,14 @@ BWD_L2_RTOL = {"bfloat16": 1e-3, "float32": 1e-5,
 DQ_ATOL_FLOOR_RMS = BWD_TOL["bfloat16"][1]
 
 
+#: Wall clock at the start of the script: each phase line carries the
+#: seconds since (``elapsed_s``).
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -362,6 +396,10 @@ FLASH_CASES = [
     (1, 4096, 32, 32, 128, True, 0, "bfloat16"),
     # base_124m's head dim.
     (4, 1024, 12, 12, 64, True, 0, "bfloat16"),
+    # Mixtral-8x7B's GQA 32/8: the MoE training path (train_moe_width) and
+    # the generate prefill (generate_moe_width).
+    (1, 4096, 32, 8, 128, True, 0, "bfloat16"),
+    (1, 512, 32, 8, 128, True, 0, "bfloat16"),
 ]
 #: FLASH_CASES entry of the training path's attention shape.
 TRAIN_FLASH_CASE = 6
@@ -648,13 +686,24 @@ def tiny_train_equivalence(torch, llama, llama_elastic, train):
     """fp32 tiny config, 5 steps of the trainer's step
     (``llama_elastic.make_step_fn``: accum 2, AdamW) through the kernels on
     the card and through the plain versions on the CPU."""
-    from trainingjob_operator_tpu_torch import ops
-
     base = llama.LlamaConfig.tiny()
     cfg = llama.LlamaConfig(**{**base.__dict__, "dtype": "float32"})
-    steps, accum = 5, 2
     init = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                              master=True)
+    return train_equivalence(torch, cfg, init, llama_elastic, train,
+                             accum=2, what="tiny train")
+
+
+def train_equivalence(torch, cfg, init, llama_elastic, train, *, accum,
+                      what, loss_fn=None):
+    """5 steps of the trainer's step (``llama_elastic.make_step_fn`` with
+    ``loss_fn``) from the CPU parameters ``init``, under each remat policy,
+    on the card and on the CPU: losses within 1e-4 relative, the first
+    step's gradients at rtol = atol = 1e-4, launches by
+    ``train_launches``."""
+    from trainingjob_operator_tpu_torch import ops
+
+    steps = 5
     batches = [torch.randint(0, cfg.vocab_size, (4, 65),
                              generator=torch.Generator().manual_seed(10 + i))
                for i in range(steps)]
@@ -664,7 +713,8 @@ def tiny_train_equivalence(torch, llama, llama_elastic, train):
         for where in ("cpu", "cuda"):
             params = train.trainable_copy(init, where)
             step_fn = llama_elastic.make_step_fn(params, cfg, accum=accum,
-                                                 lr=3e-4, remat=remat)
+                                                 lr=3e-4, remat=remat,
+                                                 loss_fn=loss_fn)
             ops.reset_launch_counts()
             losses, first_grads = [], None
             for i, tokens in enumerate(batches):
@@ -684,13 +734,13 @@ def tiny_train_equivalence(torch, llama, llama_elastic, train):
                        for a, b in zip(gpu_g, cpu_g))
         expected = train_launches(cfg.n_layers, remat, steps * accum)
         if loss_rel > 1e-4 or not all(map(math.isfinite, gpu_l)):
-            raise AssertionError(f"tiny train remat={remat}: losses "
+            raise AssertionError(f"{what} remat={remat}: losses "
                                  f"{gpu_l} vs {cpu_l}")
         if grad_viol > 0:
-            raise AssertionError(f"tiny train remat={remat}: step-1 "
+            raise AssertionError(f"{what} remat={remat}: step-1 "
                                  f"gradients differ by {grad_err}")
         if gpu_n != expected or any(cpu_n.values()):
-            raise AssertionError(f"tiny train remat={remat}: launches "
+            raise AssertionError(f"{what} remat={remat}: launches "
                                  f"{gpu_n} (cpu {cpu_n}), expected "
                                  f"{expected}")
         result[remat] = {"losses_cuda": gpu_l, "losses_cpu": cpu_l,
@@ -866,20 +916,26 @@ def sharded_7b_width(torch, llama, llama_elastic, plain):
                 run["peak_mem_gib"] - plain["peak_mem_gib"]}
 
 
-#: Runs the trainer's entry point (``python -m ...llama_elastic``) in its
-#: own process and, when ``main`` returns, prints the process's kernel
-#: launches (a preempted trainer leaves by ``os._exit`` and prints none).
-TRAINER = (
-    "import json, runpy, sys\n"
-    "from trainingjob_operator_tpu_torch import ops\n"
-    "try:\n"
-    "    runpy.run_module("
-    "'trainingjob_operator_tpu_torch.workloads.llama_elastic', "
-    "run_name='__main__')\n"
-    "except SystemExit as exc:\n"
-    "    rc = exc.code\n"
-    "print('launches ' + json.dumps(ops.launch_counts()), flush=True)\n"
-    "sys.exit(rc)\n")
+def trainer_code(module: str = "llama_elastic") -> str:
+    """Runs a trainer's entry point (``python -m ...<module>``) in its own
+    process and, when ``main`` returns, prints the process's kernel
+    launches (a preempted trainer leaves by ``os._exit`` and prints
+    none)."""
+    return (
+        "import json, runpy, sys\n"
+        "from trainingjob_operator_tpu_torch import ops\n"
+        "try:\n"
+        "    runpy.run_module("
+        f"'trainingjob_operator_tpu_torch.workloads.{module}', "
+        "run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    rc = exc.code\n"
+        "print('launches ' + json.dumps(ops.launch_counts()), flush=True)\n"
+        "sys.exit(rc)\n")
+
+
+#: The Llama trainer's (``llama_elastic``) process code.
+TRAINER = trainer_code()
 
 
 class LineSink:
@@ -933,15 +989,16 @@ class LineSink:
         self.thread.join(timeout=5)
 
 
-def run_trainer(env, timeout: float, sigterm_after: str = ""):
+def run_trainer(env, timeout: float, sigterm_after: str = "",
+                code: str = TRAINER):
     """(exit code, output lines, launches or None, seconds) of one trainer
-    process; SIGTERM once a line starts with ``sigterm_after``; killed
-    after ``timeout`` seconds."""
+    process (``code``: ``trainer_code``'s); SIGTERM once a line starts
+    with ``sigterm_after``; killed after ``timeout`` seconds."""
     import signal
     import threading
 
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-c", TRAINER], cwd=ROOT,
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     timer = threading.Timer(timeout, proc.kill)
@@ -959,11 +1016,50 @@ def run_trainer(env, timeout: float, sigterm_after: str = ""):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    return rc, lines, trainer_launches(lines), time.perf_counter() - t0
+
+
+def trainer_launches(lines):
+    """The launches a trainer process printed (``trainer_code``), or None
+    (a preempted trainer prints none)."""
     launches = None
     for line in lines:
         if line.startswith("launches "):
             launches = json.loads(line[len("launches "):])
-    return rc, lines, launches, time.perf_counter() - t0
+    return launches
+
+
+@contextlib.contextmanager
+def trainer_beside(env, code: str = TRAINER):
+    """One trainer process started beside the caller's work (a phase's
+    reference run on its own checkpoint directory, so that it overlaps
+    the runs it is compared with): yields ``join(timeout)``, which waits
+    for it (killed after ``timeout`` seconds) and returns ``run_trainer``'s
+    (exit code, output lines, launches or None, seconds).  Leaving the
+    block kills the process if it still runs."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as out:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                env=env, stdout=out,
+                                stderr=subprocess.STDOUT, text=True)
+
+        def join(timeout: float):
+            try:
+                rc = proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            out.seek(0)
+            lines = out.read().splitlines()
+            return rc, lines, trainer_launches(lines), \
+                time.perf_counter() - t0
+
+        try:
+            yield join
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def run_trainers(envs, timeout: float, args=()):
@@ -1019,13 +1115,12 @@ SIGTERM_AFTER = "step 4/"
 
 def resume_124m(torch, llama, decode, train, sink, workdir):
     """The trainer's entry point at the 124M config, as its own processes
-    on one checkpoint directory: uninterrupted, preempted by SIGTERM,
-    restarted, then restarted under each fault injection; then ``generate``
-    on the checkpoint.  Per-step losses come from the telemetry records
+    on one checkpoint directory: preempted by SIGTERM (beside it, an
+    uninterrupted run on another directory), restarted, then restarted
+    under each fault injection; then ``generate`` on the checkpoint.  Per-step losses come from the telemetry records
     (the loss as the trainer read it, not rounded)."""
     import os
 
-    from trainingjob_operator_tpu_torch import ops
     from trainingjob_operator_tpu_torch.workloads import generate
 
     N = RESUME_STEPS
@@ -1043,8 +1138,10 @@ def resume_124m(torch, llama, decode, train, sink, workdir):
         return env
 
     def run(job, ckpt, steps, sigterm_after="", **extra):
-        rc, lines, counts, secs = run_trainer(
-            env_of(job, ckpt, steps, **extra), 300, sigterm_after)
+        return record(job, *run_trainer(env_of(job, ckpt, steps, **extra),
+                                        300, sigterm_after))
+
+    def record(job, rc, lines, counts, secs):
         if counts is not None:
             launches.append(counts)
         recs = sink.steps(job)
@@ -1062,12 +1159,13 @@ def resume_124m(torch, llama, decode, train, sink, workdir):
 
     ckpt = os.path.join(workdir, "resume")
     plain = os.path.join(workdir, "plain")
-    rc, lines = run("uninterrupted", plain, N)
-    expect(rc == 0 and sorted(runs["uninterrupted"]["losses"])
-           == list(range(1, N + 1)), "uninterrupted run", lines)
+    # The uninterrupted run, on its own directory, beside the preempted one.
+    with trainer_beside(env_of("uninterrupted", plain, N)) as uninterrupted:
+        rc, lines = run("preempted", ckpt, N, sigterm_after=SIGTERM_AFTER)
+        rc_plain, lines_plain = record("uninterrupted", *uninterrupted(300))
+    expect(rc_plain == 0 and sorted(runs["uninterrupted"]["losses"])
+           == list(range(1, N + 1)), "uninterrupted run", lines_plain)
     want = runs["uninterrupted"]["losses"]
-
-    rc, lines = run("preempted", ckpt, N, sigterm_after=SIGTERM_AFTER)
     expect(rc == 143 and lines[-1]
            == "preemption checkpoint committed; exiting 143",
            f"preempted run exited {rc}", lines)
@@ -1122,24 +1220,10 @@ def resume_124m(torch, llama, decode, train, sink, workdir):
     params = train._onto(llama.init_params(cfg, torch.Generator(
         device="cuda").manual_seed(0), "cuda"), saved)
     prompt = [1, 450, 4996, 17354, 1701, 29916]
-    gen_env = {"LLAMA_CONFIG": "124m", "GEN_STEPS": "24",
-               "GEN_PROMPT": ",".join(map(str, prompt)),
-               "TRAININGJOB_CHECKPOINT_DIR": ckpt}
-    old = {k_: os.environ.get(k_) for k_ in gen_env}
-    os.environ.update(gen_env)
-    buf = io.StringIO()
-    ops.reset_launch_counts()
-    try:
-        with contextlib.redirect_stdout(buf):
-            rc = generate.main([])
-    finally:
-        for k_, v in old.items():
-            if v is None:
-                os.environ.pop(k_, None)
-            else:
-                os.environ[k_] = v
-    gen_launches = ops.launch_counts()
-    out = buf.getvalue().splitlines()
+    rc, out, gen_launches = run_main(
+        torch, generate.main, LLAMA_CONFIG="124m", GEN_STEPS="24",
+        GEN_PROMPT=",".join(map(str, prompt)),
+        TRAININGJOB_CHECKPOINT_DIR=ckpt)
     want_tokens = decode.generate(params, torch.tensor([prompt],
                                                        device="cuda"),
                                   cfg, steps=24)[0].tolist()
@@ -1231,7 +1315,8 @@ def cross_width_resume(sink, workdir):
     two processes on the machine's CPU (gloo) train to step 2 and save it
     as two shards; one process on the card (a group of one on NCCL)
     resumes from them and trains to step 6; its losses equal those of an
-    uninterrupted one-process card run within CROSS_LOSS_RTOL."""
+    uninterrupted one-process card run (started beside the others) within
+    CROSS_LOSS_RTOL."""
     import os
 
     def envs(job, ckpt, world, steps):
@@ -1254,34 +1339,42 @@ def cross_width_resume(sink, workdir):
 
     ckpt = os.path.join(workdir, "cross")
     runs, card_launches = {}, []
-    for job, world, steps, args, directory in (
-            ("cross_cpu", 2, CROSS_SAVED, ("--device", "cpu"), ckpt),
-            ("cross_resumed", 1, CROSS_STEPS, (), ckpt),
-            ("cross_plain", 1, CROSS_STEPS, (),
-             os.path.join(workdir, "cross_plain"))):
-        t0 = time.perf_counter()
-        rcs, lines, launches = run_trainers(envs(job, directory, world,
-                                                 steps), 300, args)
+
+    def record(job, world, device, rcs, lines, launches, wall_s):
         expect(rcs == [0] * world, f"{job} exited {rcs}",
                [ln for out in lines for ln in out])
-        if not args:
+        if device == "cuda":
             card_launches.extend(launches)
         recs = sink.steps(job)
-        runs[job] = {"world": world, "wall_s": time.perf_counter() - t0,
-                     "device": "cpu" if args else "cuda",
+        runs[job] = {"world": world, "wall_s": wall_s, "device": device,
                      "losses": {r["step"] + 1: r["loss"] for r in recs},
                      "resumed": [ln for ln in lines[0]
                                  if ln.startswith("resume")],
                      "recovery": line_fields(lines[0],
                                              "recovery_timing init_s")}
-        if job == "cross_cpu":
-            shards = sorted(os.listdir(os.path.join(ckpt, "llama",
-                                                    str(CROSS_SAVED))))
-            expect(shards == ["shard-0.pt", "shard-1.pt"],
-                   f"step {CROSS_SAVED} holds {shards}", lines[0])
-        if job == "cross_resumed":
-            expect(f"resumed at step {CROSS_SAVED} (width 1)" in lines[0],
-                   "no resume at the saved step", lines[0])
+
+    # The uninterrupted card run, on its own directory, beside the others.
+    with trainer_beside(envs("cross_plain", os.path.join(
+            workdir, "cross_plain"), 1, CROSS_STEPS)[0]) as plain:
+        for job, world, steps, args in (
+                ("cross_cpu", 2, CROSS_SAVED, ("--device", "cpu")),
+                ("cross_resumed", 1, CROSS_STEPS, ())):
+            t0 = time.perf_counter()
+            rcs, lines, launches = run_trainers(envs(job, ckpt, world,
+                                                     steps), 300, args)
+            record(job, world, "cpu" if args else "cuda", rcs, lines,
+                   launches, time.perf_counter() - t0)
+            if job == "cross_cpu":
+                shards = sorted(os.listdir(os.path.join(
+                    ckpt, "llama", str(CROSS_SAVED))))
+                expect(shards == ["shard-0.pt", "shard-1.pt"],
+                       f"step {CROSS_SAVED} holds {shards}", lines[0])
+            else:
+                expect(f"resumed at step {CROSS_SAVED} (width 1)"
+                       in lines[0], "no resume at the saved step", lines[0])
+        rc, lines, counts, secs = plain(300)
+        record("cross_plain", 1, "cuda", [rc], [lines],
+               [counts] if counts is not None else [], secs)
     got, want = runs["cross_resumed"]["losses"], runs["cross_plain"]["losses"]
     steps_after = list(range(CROSS_SAVED + 1, CROSS_STEPS + 1))
     expect(sorted(got) == steps_after
@@ -1665,15 +1758,24 @@ def resize_ladder_124m(sink, workdir, uninterrupted):
 def tiny_equivalence(torch, llama, decode, serve):
     """fp32 tiny config through the kernels: serve == generate, per
     request."""
-    from trainingjob_operator_tpu_torch import ops
-
     dev = torch.device("cuda")
     base = llama.LlamaConfig.tiny()
     cfg = llama.LlamaConfig(**{**base.__dict__, "dtype": "float32"})
     params = llama.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    return serve_equals_generate(torch, serve, decode, params, cfg,
+                                 "llama")
+
+
+def serve_equals_generate(torch, serve, decode, params, cfg, family):
+    """A DecodeService run of 12 requests (3 slots, chunk 4) on the card:
+    every request gets exactly ``decode.generate``'s tokens for its
+    prompt, no stale KV, RMSNorm and the flash forward launched."""
+    from trainingjob_operator_tpu_torch import ops
+
+    dev = torch.device("cuda")
     svc = serve.DecodeService(params, cfg, slots=3, prefill_chunk=4,
-                              device=dev)
+                              family=family, device=dev)
     traffic = serve.synthetic_traffic(12, seed=3, rate=1.5,
                                       vocab=cfg.vocab_size,
                                       prompt_lens=(3, 10),
@@ -1689,24 +1791,28 @@ def tiny_equivalence(torch, llama, decode, serve):
     counts = ops.launch_counts()
     stats = result["stats"]
     if len(result["completed"]) != 12 or mismatched:
-        raise AssertionError(f"tiny fp32: {mismatched} of "
+        raise AssertionError(f"tiny {family}: {mismatched} of "
                              f"{len(result['completed'])} requests differ "
                              f"from generate")
     if stats["stale_kv_violations"]:
-        raise AssertionError("tiny fp32: stale KV")
+        raise AssertionError(f"tiny {family}: stale KV")
     if not (counts["rmsnorm_fwd"] and counts["flash_attention_fwd"]):
-        raise AssertionError(f"tiny fp32 run skipped a kernel: {counts}")
+        raise AssertionError(f"tiny {family} run skipped a kernel: "
+                             f"{counts}")
     return {"requests": 12, "serve_equals_generate": True,
             "stale_kv_violations": 0, "launches": counts}
 
 
-def serve_7b(torch, llama, serve, params, cfg):
+def serve_7b(torch, serve, params, cfg, family="llama"):
+    """DecodeService on ``params`` of the ``family`` (4 slots, max_len
+    1024, chunk 16, 8 requests): every request finished, no stale KV,
+    RMSNorm 2 L + 1 times a call and no flash launch; a profiled decode
+    tick."""
     from trainingjob_operator_tpu_torch import ops
-    from trainingjob_operator_tpu_torch.models import decode
 
     dev = torch.device("cuda")
     svc = serve.DecodeService(params, cfg, slots=4, max_len=1024,
-                              prefill_chunk=16, device=dev)
+                              prefill_chunk=16, family=family, device=dev)
     svc.warmup()
     traffic = serve.synthetic_traffic(8, seed=0, rate=0.5,
                                       vocab=cfg.vocab_size,
@@ -1721,20 +1827,21 @@ def serve_7b(torch, llama, serve, params, cfg):
     per_call = 2 * cfg.n_layers + 1
     expected = per_call * (svc.decode_calls + svc.prefill_calls)
     if s["stale_kv_violations"] != 0:
-        raise AssertionError(f"7B serve: {s['stale_kv_violations']} stale-KV "
-                             f"violations")
+        raise AssertionError(f"{family} serve: {s['stale_kv_violations']} "
+                             f"stale-KV violations")
     if s["completed_total"] != len(traffic) or s["submitted"] != len(traffic):
-        raise AssertionError(f"7B serve finished {s['completed_total']} of "
-                             f"{len(traffic)} requests")
+        raise AssertionError(f"{family} serve finished "
+                             f"{s['completed_total']} of {len(traffic)} "
+                             f"requests")
     if counts["rmsnorm_fwd"] != expected:
-        raise AssertionError(f"7B serve: {counts['rmsnorm_fwd']} rmsnorm "
-                             f"launches, expected {expected}")
+        raise AssertionError(f"{family} serve: {counts['rmsnorm_fwd']} "
+                             f"rmsnorm launches, expected {expected}")
     if counts["flash_attention_fwd"] != 0:
-        raise AssertionError("7B serve launched the flash kernel")
+        raise AssertionError(f"{family} serve launched the flash kernel")
     # A decode tick with every slot at a position inside the cache.
     tokens = torch.arange(1, len(svc.slots) + 1, device=dev)
     ts = torch.arange(len(svc.slots), device=dev) * 100 + 100
-    tick = profile_steps(torch, lambda: decode.serve_step(
+    tick = profile_steps(torch, lambda: svc.model.serve_step(
         svc.params, svc.cache, tokens, ts, cfg))
     return {
         "tick": tick,
@@ -1786,6 +1893,10 @@ def profile_steps(torch, step, n: int = 5):
 
 
 def generate_7b(torch, decode, params, cfg):
+    """``decode.generate`` (``models/decode.py`` or ``moe_decode.py``) of
+    32 greedy tokens after a 512-token prompt: the prefill's L flash
+    launches all on the tensor cores, 2 L + 1 RMSNorms a token, the same
+    tokens twice; the prefill and decode-step profiles."""
     from trainingjob_operator_tpu_torch import ops
 
     dev = torch.device("cuda")
@@ -1808,18 +1919,18 @@ def generate_7b(torch, decode, params, cfg):
     counts = ops.launch_counts()
     if not (counts["flash_attention_fwd"]
             == counts["flash_attention_fwd_wgmma"] == cfg.n_layers):
-        raise AssertionError(f"7B generate: flash launches {counts}, "
+        raise AssertionError(f"generate: flash launches {counts}, "
                              f"expected {cfg.n_layers}, all on the tensor "
                              f"cores")
     if counts["rmsnorm_fwd"] != (2 * cfg.n_layers + 1) * steps:
-        raise AssertionError(f"7B generate: {counts['rmsnorm_fwd']} rmsnorm "
+        raise AssertionError(f"generate: {counts['rmsnorm_fwd']} rmsnorm "
                              f"launches")
     if tuple(tokens.shape) != (1, steps) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
-        raise AssertionError(f"7B generate: bad tokens {tokens.tolist()}")
+        raise AssertionError(f"generate: bad tokens {tokens.tolist()}")
     again, _ = timed(steps)
     if not torch.equal(again, tokens):
-        raise AssertionError("7B greedy generate is not deterministic")
+        raise AssertionError("greedy generate is not deterministic")
     _, cache = decode.prefill(params, prompt, cfg, 512 + steps)
     last = tokens[:, -1]
     return {"prompt_len": 512, "steps": steps, "prefill_ms":
@@ -1832,6 +1943,273 @@ def generate_7b(torch, decode, params, cfg):
             "decode_step_profile": profile_steps(
                 torch, lambda: decode.decode_step(params, cache, last, 512,
                                                   cfg))}
+
+
+def tiny_moe_equivalence(torch, moe, moe_decode, serve, llama_elastic,
+                         train):
+    """The MoE tiny config in fp32 at a dropless capacity (capacity_factor
+    = n_experts / experts_per_token, so the whole-prompt prefill drops
+    nothing) through the kernels: every request of a MoE DecodeService run
+    gets exactly ``moe_decode.generate``'s tokens; then the trainer's step
+    with ``moe.loss_fn`` (accum 1, the MoE trainer's) under every remat
+    policy on the card equals the CPU's (``train_equivalence``)."""
+    dev = torch.device("cuda")
+    base = moe.MoEConfig.tiny()
+    cfg = dataclasses.replace(
+        base, dtype="float32",
+        capacity_factor=base.n_experts / base.experts_per_token)
+    params = moe.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    served = serve_equals_generate(torch, serve, moe_decode, params, cfg,
+                                   "moe")
+    init = moe.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                           master=True)
+    trained = train_equivalence(torch, cfg, init, llama_elastic, train,
+                                accum=1, what="tiny MoE train",
+                                loss_fn=moe.loss_fn)
+    return {"capacity_factor": cfg.capacity_factor, "serve": served,
+            "train": trained}
+
+
+def gemm_split(torch, step, classify, n: int = 2):
+    """Device ms a call of ``step`` spends by class, from one
+    ``torch.profiler`` window of ``n`` calls with input shapes: each
+    matrix product's kernels (``aten::mm``/``bmm``/``addmm``, host and
+    autograd alike) under ``classify(op, shapes)``, the flash and RMSNorm
+    kernels by name, and the rest (elementwise work, reductions, copies)
+    as ``other``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    split = {}
+
+    def add(key, us):
+        split[key] = split.get(key, 0.0) + us / 1e3 / n
+
+    total = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in (
+                "aten::mm", "aten::bmm", "aten::addmm"):
+            add(classify(e.name, e.input_shapes), e.self_device_time_total)
+        elif e.device_type == DeviceType.CUDA:
+            total += e.self_device_time_total / 1e3 / n
+            for key in ("flash", "rmsnorm"):
+                if key in e.name:
+                    add(key, e.self_device_time_total)
+    split["other"] = total - sum(split.values())
+    return {"device_ms": total, "ms": split,
+            "share": {k: v / total for k, v in split.items()} if total
+            else {}}
+
+
+def train_moe_width(torch, moe, llama_elastic, train):
+    """The MoE trainer's step (``llama_elastic.make_step_fn`` with
+    ``moe.loss_fn``) at Mixtral-8x7B widths, 2 of its 32 layers (f32
+    masters, gradients and AdamW moments of 3.16e9 parameters: 50.6 GB),
+    bf16 compute, seq 4096, global batch 2, remat "none": 8 steps on one
+    repeated batch; the loss falls, every flash forward, dQ and dK/dV
+    launch on the tensor cores (L a step each) and 2 L + 1 RMSNorms a
+    step; step time, tokens/s, peak memory, a step profile and its split
+    into expert GEMMs, dispatch/combine, dense GEMMs, kernels and other
+    work (``gemm_split``)."""
+    from trainingjob_operator_tpu_torch import ops
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(moe.MoEConfig.mixtral_8x7b(), n_layers=2)
+    seq, batch, steps, lr, remat = 4096, 2, 8, 3e-4, "none"
+    t0 = time.perf_counter()
+    params = moe.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev, master=True)
+    for leaf in train.tree_leaves(params):
+        leaf.requires_grad_(True)
+    step_fn = llama_elastic.make_step_fn(params, cfg, accum=1, lr=lr,
+                                         remat=remat, loss_fn=moe.loss_fn)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(float(step_fn(tokens)))
+        step_s.append(time.perf_counter() - t)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = train_launches(cfg.n_layers, remat, 1, tensor_cores=True)
+    if counts != {k: n * steps for k, n in per_step.items()}:
+        raise AssertionError(f"MoE-width train: launches {counts}, "
+                             f"expected {per_step} per step x {steps}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE-width train: losses {losses}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+
+    def classify(op, shapes):
+        if op != "aten::bmm":
+            return "dense_gemm"
+        dims = {d for shape in shapes for d in (shape or ())}
+        return "expert_gemm" if cfg.ffn_dim in dims else "dispatch_combine"
+
+    return {"n_layers": cfg.n_layers, "n_params": moe.num_params(cfg),
+            "active_params": moe.active_params(cfg),
+            "capacity": moe.expert_capacity(cfg, seq), "seq": seq,
+            "global_batch": batch, "remat": remat, "lr": lr,
+            "init_s": init_s, "losses": losses, "step_s": step_s,
+            "step_s_median": steady, "tokens_per_s": batch * seq / steady,
+            "peak_mem_gib": peak / 2 ** 30,
+            "launches_per_step": per_step, "launches": counts,
+            "step_profile": profile_steps(torch, lambda: step_fn(tokens),
+                                          n=2),
+            "step_split": gemm_split(torch, lambda: step_fn(tokens),
+                                     classify)}
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """``os.environ`` with ``values`` set, restored on exit."""
+    import os
+
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_main(torch, main, **env):
+    """(exit code, output lines, launches) of an entry point's ``main``
+    run in this process under ``env``."""
+    from trainingjob_operator_tpu_torch import ops
+
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    with environ(**env), contextlib.redirect_stdout(buf), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        rc = main([])
+    torch.cuda.synchronize()
+    return rc, buf.getvalue().splitlines(), ops.launch_counts()
+
+
+#: moe_resume: steps of the uninterrupted run (a tiny step takes
+#: milliseconds: the SIGTERM after step 4 must land well before the end).
+MOE_RESUME_STEPS = 40
+
+
+def moe_resume(torch, moe, moe_decode, train, sink, workdir):
+    """The MoE trainer's entry point (``python -m ...moe_pretrain``) at
+    MOE_CONFIG=tiny (bf16, seq 128, batch 8), as processes on the card:
+    a run given SIGTERM after step 4, which must exit 143 with its step
+    committed (beside it, an uninterrupted run on another directory); a
+    restart, whose losses (from the telemetry records) equal the
+    uninterrupted run's bit for bit; then the ``generate`` and ``serve``
+    mains with GEN_FAMILY=moe on the checkpoint."""
+    import os
+
+    from trainingjob_operator_tpu_torch.workloads import generate
+    from trainingjob_operator_tpu_torch.workloads import serve as serve_mod
+
+    N = MOE_RESUME_STEPS
+    code = trainer_code("moe_pretrain")
+    runs, launches = {}, []
+
+    def env_of(job, ckpt):
+        env = dict(os.environ)
+        env.update({"MOE_CONFIG": "tiny", "MOE_STEPS": str(N),
+                    "MOE_CKPT_EVERY": str(RESUME_CKPT_EVERY),
+                    "TRAININGJOB_CHECKPOINT_DIR": ckpt,
+                    "TRAININGJOB_TELEMETRY_ADDR": sink.address,
+                    "TRAININGJOB_NAMESPACE": "smoke",
+                    "TRAININGJOB_NAME": job})
+        return env
+
+    def run(job, ckpt, sigterm_after=""):
+        return record(job, *run_trainer(env_of(job, ckpt), 300,
+                                        sigterm_after, code))
+
+    def record(job, rc, lines, counts, secs):
+        if counts is not None:
+            launches.append(counts)
+        recs = sink.steps(job)
+        runs[job] = {"rc": rc, "wall_s": secs,
+                     "first_step_s": float(line_fields(
+                         lines, "recovery_timing first_step_s").get(
+                             "first_step_s", "nan")),
+                     "losses": {r["step"] + 1: r["loss"] for r in recs}}
+        return rc, lines
+
+    ckpt = os.path.join(workdir, "moe_resume")
+    # The uninterrupted run, on its own directory, beside the preempted one.
+    with trainer_beside(env_of("moe_uninterrupted",
+                               os.path.join(workdir, "moe_plain")),
+                        code) as uninterrupted:
+        rc, lines = run("moe_preempted", ckpt, sigterm_after=SIGTERM_AFTER)
+        rc_plain, lines_plain = record("moe_uninterrupted",
+                                       *uninterrupted(300))
+    expect(rc_plain == 0 and sorted(runs["moe_uninterrupted"]["losses"])
+           == list(range(1, N + 1)), "MoE uninterrupted run", lines_plain)
+    want = runs["moe_uninterrupted"]["losses"]
+    expect(rc == 143 and lines[-1]
+           == "preemption checkpoint committed; exiting 143",
+           f"MoE preempted run exited {rc}", lines)
+    k = train.committed_steps(os.path.join(ckpt, "moe"))[0]
+    expect(4 <= k < N, f"MoE preempted run committed step {k}", lines)
+    rc, lines = run("moe_restarted", ckpt)
+    got = runs["moe_restarted"]["losses"]
+    expect(rc == 0 and f"resumed at step {k} (width 1)" in lines,
+           "MoE restart did not resume", lines)
+    expect(sorted(got) == list(range(k + 1, N + 1))
+           and all(got[i] == want[i] for i in got),
+           f"MoE restart: losses {got} differ from {want}", lines)
+
+    cfg = moe.MoEConfig.tiny()
+    saved = torch.load(os.path.join(ckpt, "moe", str(N), "params.pt"),
+                       weights_only=True)
+    params = train._onto(moe.init_params(cfg, None, "cuda"), saved)
+    prompt = [1, 45, 96, 17, 29]
+    rc, out, counts = run_main(
+        torch, generate.main, GEN_FAMILY="moe", GEN_STEPS="16",
+        GEN_PROMPT=",".join(map(str, prompt)),
+        TRAININGJOB_CHECKPOINT_DIR=ckpt)
+    launches.append(counts)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want_tokens = moe_decode.generate(
+            params, torch.tensor([prompt], device="cuda"), cfg,
+            steps=16)[0].tolist()
+    expect(rc == 0 and f"sampling from checkpoint at step {N}" in out
+           and f"tokens: {','.join(map(str, want_tokens))}" in out,
+           f"MoE generate from the checkpoint: {want_tokens}", out)
+    rc, out, counts = run_main(
+        torch, serve_mod.main, GEN_FAMILY="moe",
+        TRAININGJOB_SERVE_REQUESTS="8", TRAININGJOB_CHECKPOINT_DIR=ckpt)
+    launches.append(counts)
+    done = line_fields(out, "serve done:")
+    expect(rc == 0 and f"serving the checkpoint at step {N}" in out
+           and "serve: family=moe " in " ".join(out)
+           and done.get("completed") == "8"
+           and done.get("stale_kv_violations") == "0",
+           "MoE serve from the checkpoint", out)
+    return {"config": "tiny", "steps": N, "ckpt_every": RESUME_CKPT_EVERY,
+            "preempted_at_committed_step": k, "runs": runs,
+            "bit_identical_after_resume": True,
+            "generate_tokens": want_tokens, "serve_done": done,
+            "launches": {key: sum(c[key] for c in launches)
+                         for key in launches[0]}}
 
 
 def tiny_train_runs(tiny_train):
@@ -1864,7 +2242,12 @@ def main() -> int:
     import torch.nn.functional as F
 
     from trainingjob_operator_tpu_torch import ops
-    from trainingjob_operator_tpu_torch.models import decode, llama
+    from trainingjob_operator_tpu_torch.models import (
+        decode,
+        llama,
+        moe,
+        moe_decode,
+    )
     from trainingjob_operator_tpu_torch.ops import _build, fused
     from trainingjob_operator_tpu_torch.workloads import (
         llama_elastic,
@@ -1907,20 +2290,56 @@ def main() -> int:
     emit({"phase": "tiny_equivalence", **tiny})
     tiny_train = tiny_train_equivalence(torch, llama, llama_elastic, train)
     emit({"phase": "tiny_train_equivalence", **tiny_train})
+    tiny_moe = tiny_moe_equivalence(torch, moe, moe_decode, serve,
+                                    llama_elastic, train)
+    emit({"phase": "tiny_moe_equivalence", **tiny_moe})
 
-    cfg = llama.LlamaConfig.llama2_7b()
+    # Llama-2-7B widths, 16 of 32 layers (the depth cut that keeps the
+    # script inside half its limit once the MoE phases run too).
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=16)
     t0 = time.perf_counter()
     params = llama.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    served = serve_7b(torch, llama, serve, params, cfg)
+    served = serve_7b(torch, serve, params, cfg)
     emit({"phase": "serve_7b", "device": name, "nvidia_smi": smi,
-          "init_s": init_s, "n_params": llama.num_params(cfg), **served})
+          "init_s": init_s, "n_layers": cfg.n_layers,
+          "n_params": llama.num_params(cfg), **served})
     generated = generate_7b(torch, decode, params, cfg)
     emit({"phase": "generate_7b", "device": name, "nvidia_smi": smi,
-          **generated})
+          "n_layers": cfg.n_layers, **generated})
     del params
+    torch.cuda.empty_cache()
+
+    # Mixtral-8x7B widths, 16 of 32 layers: 23.48e9 parameters, 43.7 GiB
+    # in bf16 (all 32 layers: 93.4 GB).
+    moe_cfg = dataclasses.replace(moe.MoEConfig.mixtral_8x7b(), n_layers=16)
+    t0 = time.perf_counter()
+    params = moe.init_params(
+        moe_cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    moe_served = serve_7b(torch, serve, params, moe_cfg, family="moe")
+    emit({"phase": "serve_moe_width", "device": name, "nvidia_smi": smi,
+          "init_s": init_s, "n_layers": moe_cfg.n_layers,
+          "n_params": moe.num_params(moe_cfg), **moe_served})
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        moe_generated = generate_7b(torch, moe_decode, params, moe_cfg)
+    capacity = [str(w.message) for w in caught
+                if issubclass(w.category, RuntimeWarning)
+                and "prefill may drop tokens" in str(w.message)]
+    if not capacity:
+        raise AssertionError("MoE generate: no capacity warning")
+    emit({"phase": "generate_moe_width", "device": name, "nvidia_smi": smi,
+          "n_layers": moe_cfg.n_layers, "capacity_warning": capacity[0],
+          **moe_generated})
+    del params
+    torch.cuda.empty_cache()
+    moe_trained = train_moe_width(torch, moe, llama_elastic, train)
+    emit({"phase": "train_moe_width", "device": name, "nvidia_smi": smi,
+          **moe_trained})
     torch.cuda.empty_cache()
     trained = train_7b_width(torch, llama, llama_elastic)
     emit({"phase": "train_7b_width", "device": name, "nvidia_smi": smi,
@@ -1958,6 +2377,10 @@ def main() -> int:
             sink, workdir, resumed["runs"]["uninterrupted"]["losses"])
         emit({"phase": "resize_ladder_124m", "device": name,
               "nvidia_smi": smi, **ladder})
+        moe_resumed = moe_resume(torch, moe, moe_decode, train, sink,
+                                 workdir)
+        emit({"phase": "moe_resume", "device": name, "nvidia_smi": smi,
+              **moe_resumed})
     finally:
         sink.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1967,7 +2390,9 @@ def main() -> int:
     # fp32 ones the f32-FMA kernels.
     paths = [served, generated, trained, remat["attn"], remat["dots"],
              sharded, resumed, tel, cross, resized, ladder, tiny,
-             *tiny_train_runs(tiny_train)]
+             *tiny_train_runs(tiny_train), tiny_moe["serve"],
+             *tiny_train_runs(tiny_moe["train"]), moe_served, moe_generated,
+             moe_trained, moe_resumed]
     launches = {k: sum(p["launches"][k] for p in paths)
                 for k in ops.launch_counts()}
     fma = {key: launches[key] - launches[f"{key}_wgmma"]

@@ -77,6 +77,17 @@ def test_the_parallel_modules_are_scanned():
         _port_modules()
 
 
+def test_the_moe_modules_are_scanned():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_files()
+               if PKG in p.parents}
+    assert {"models/moe.py", "models/moe_decode.py",
+            "workloads/moe_pretrain.py"} <= scanned
+    assert {"trainingjob_operator_tpu_torch.models.moe",
+            "trainingjob_operator_tpu_torch.models.moe_decode",
+            "trainingjob_operator_tpu_torch.workloads.moe_pretrain"} <= \
+        set(_port_modules())
+
+
 def test_every_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
@@ -137,11 +148,15 @@ class TestCudaByDefault:
     def test_constructors_raise(self, no_cuda, tiny_cpu_params):
         from trainingjob_operator_tpu_torch import resolve_device
         from trainingjob_operator_tpu_torch.data.loader import Prefetcher
-        from trainingjob_operator_tpu_torch.models import decode, llama
+        from trainingjob_operator_tpu_torch.models import decode, llama, moe
         from trainingjob_operator_tpu_torch.workloads import serve, train
 
         cfg, params = tiny_cpu_params
+        moe_cfg = moe.MoEConfig.tiny()
         calls = [
+            lambda: moe.init_params(moe_cfg, torch.Generator()),
+            lambda: moe.params_from_numpy({}, moe_cfg),
+            lambda: serve.DecodeService(params, moe_cfg, family="moe"),
             lambda: resolve_device(),
             lambda: llama.init_params(cfg, torch.Generator()),
             lambda: llama.params_from_numpy({}, cfg),
@@ -159,16 +174,35 @@ class TestCudaByDefault:
                 call()
         assert resolve_device("cpu") == torch.device("cpu")
 
-    @pytest.mark.parametrize("module", ["serve", "generate", "llama_elastic"])
+    @pytest.mark.parametrize("module", ["serve", "generate", "llama_elastic",
+                                        "moe_pretrain"])
     def test_main_raises_before_any_work(self, no_cuda, monkeypatch, module):
         import importlib
 
-        from trainingjob_operator_tpu_torch.models import llama
+        from trainingjob_operator_tpu_torch.models import llama, moe
 
         def must_not_run(*a, **k):
             raise AssertionError("main ran work without a device")
 
         monkeypatch.setattr(llama, "init_params", must_not_run)
+        monkeypatch.setattr(moe, "init_params", must_not_run)
+        main = importlib.import_module(
+            f"trainingjob_operator_tpu_torch.workloads.{module}").main
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([])
+
+    @pytest.mark.parametrize("module", ["serve", "generate"])
+    def test_moe_main_raises_before_any_work(self, no_cuda, monkeypatch,
+                                             module):
+        import importlib
+
+        from trainingjob_operator_tpu_torch.models import moe
+
+        def must_not_run(*a, **k):
+            raise AssertionError("main ran work without a device")
+
+        monkeypatch.setattr(moe, "init_params", must_not_run)
+        monkeypatch.setenv("GEN_FAMILY", "moe")
         main = importlib.import_module(
             f"trainingjob_operator_tpu_torch.workloads.{module}").main
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -19,6 +19,11 @@ The decode attentions (``_attend_cache``, ``_attend_cache_block``) are
 plain PyTorch, as they are plain XLA in the JAX package; RMSNorm in every
 layer, and the flash attention of the prefill forward, are the CUDA
 kernels on the card.
+
+The layer loops take the MLP block as ``mlp`` (``dense_mlp`` here), and
+``generate`` is ``sampling_args`` + ``prefill`` + ``sample``: the MoE
+family (``models/moe_decode.py``), whose cache has this layout, runs the
+same loops and sampling with its routed block.
 """
 
 from __future__ import annotations
@@ -116,14 +121,21 @@ def prefill(params, tokens: torch.Tensor, config: llama.LlamaConfig,
     return logits_all[:, -1, :], pack_cache(k, v, config, max_len)
 
 
-def _layer_tail(h, layer, o, compute, c):
-    """Attention output projection + residual, then the MLP block."""
-    B, T = h.shape[:2]
-    h = h + qmatmul(o.reshape(B, T, c.dim), layer["attn"]["wo"], compute)
+def dense_mlp(h, layer, compute, c):
+    """The Llama MLP block of the residual stream h [B, T, D]: pre-norm,
+    SwiGLU, the output to add to h.  The decode loops take the block as
+    ``mlp`` (``moe_decode.routed_mlp`` is the MoE family's)."""
     x = llama._rmsnorm(h, layer["mlp_norm"], c.norm_eps)
     gate = F.silu(qmatmul(x, layer["mlp"]["w_gate"], compute))
     up = qmatmul(x, layer["mlp"]["w_up"], compute)
-    return h + qmatmul(gate * up, layer["mlp"]["w_down"], compute)
+    return qmatmul(gate * up, layer["mlp"]["w_down"], compute)
+
+
+def _layer_tail(h, layer, o, compute, c, mlp):
+    """Attention output projection + residual, then the MLP block."""
+    B, T = h.shape[:2]
+    h = h + qmatmul(o.reshape(B, T, c.dim), layer["attn"]["wo"], compute)
+    return h + mlp(h, layer, compute, c)
 
 
 def _qkv(x, layer, rope, compute, c):
@@ -138,11 +150,12 @@ def _qkv(x, layer, rope, compute, c):
 
 
 def decode_step(params, cache, token: torch.Tensor, t: int,
-                config: llama.LlamaConfig):
+                config: llama.LlamaConfig, *, mlp=dense_mlp):
     """One token [B] at position ``t`` -> (logits [B, vocab] f32, cache).
 
     ``params`` may carry weight-only int8 leaves (``quant.qmatmul``).  The
-    cache is written in place."""
+    cache is written in place.  ``mlp`` is the layer's MLP block
+    (``dense_mlp``)."""
     c = config
     compute = c.compute_dtype
     B = token.shape[0]
@@ -166,14 +179,14 @@ def decode_step(params, cache, token: torch.Tensor, t: int,
         v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
         o = _attend_cache(q, k_cache, v_cache, t, group,
                           window=c.sliding_window).to(compute)
-        h = _layer_tail(h, layer, o, compute, c)
+        h = _layer_tail(h, layer, o, compute, c, mlp)
     h = llama._rmsnorm(h, params["final_norm"], c.norm_eps)
     logits = qmatmul(h[:, 0, :], params["lm_head"], compute)
     return logits.float(), cache
 
 
 def serve_step(params, cache, token: torch.Tensor, ts: torch.Tensor,
-               config: llama.LlamaConfig):
+               config: llama.LlamaConfig, *, mlp=dense_mlp):
     """One decode step for a continuous-batching slot batch: tokens [B] at
     per-slot positions ``ts`` [B] -> (logits [B, vocab] f32, cache).
 
@@ -183,6 +196,7 @@ def serve_step(params, cache, token: torch.Tensor, ts: torch.Tensor,
     or the next prefill chunk overwrites it.  The write index is clamped to
     the cache as ``dynamic_update_slice`` clamps it (the scheduler never
     passes ts >= S; checking that here would cost a device sync per step).
+    ``mlp`` is the layer's MLP block (``dense_mlp``).
     """
     c = config
     compute = c.compute_dtype
@@ -204,7 +218,7 @@ def serve_step(params, cache, token: torch.Tensor, ts: torch.Tensor,
         v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
         o = _attend_cache(q, k_cache, v_cache, tb, group,
                           window=c.sliding_window).to(compute)
-        h = _layer_tail(h, layer, o, compute, c)
+        h = _layer_tail(h, layer, o, compute, c, mlp)
     h = llama._rmsnorm(h, params["final_norm"], c.norm_eps)
     logits = qmatmul(h[:, 0, :], params["lm_head"], compute)
     return logits.float(), cache
@@ -229,14 +243,15 @@ def _attend_cache_block(q, keys, values, positions, group: int):
 
 
 def prefill_chunk(params, cache, tokens: torch.Tensor, slot: int, t0: int,
-                  config: llama.LlamaConfig):
+                  config: llama.LlamaConfig, *, mlp=dense_mlp):
     """Prefill ONE slot with a fixed-size prompt chunk ``tokens`` [C] at
     positions [t0, t0 + C) of batch row ``slot`` -> (logits [C, vocab] f32,
     cache).  The caller reads the logit at its last valid offset.
 
     Requires a full-causal cache.  Unlike ``dynamic_update_slice``, which
     CLAMPS a start index past ``S - C`` and so writes the chunk's K/V at
-    shifted positions, this raises when the chunk does not fit.
+    shifted positions, this raises when the chunk does not fit.  ``mlp``
+    is the layer's MLP block (``dense_mlp``).
     """
     c = config
     if c.sliding_window:
@@ -263,7 +278,7 @@ def prefill_chunk(params, cache, tokens: torch.Tensor, slot: int, t0: int,
         row_v[t0:t0 + C] = v[0].to(row_v.dtype)
         o = _attend_cache_block(q[0], row_k, row_v, positions,
                                 group).to(compute)
-        h = _layer_tail(h, layer, o[None], compute, c)
+        h = _layer_tail(h, layer, o[None], compute, c, mlp)
     h = llama._rmsnorm(h, params["final_norm"], c.norm_eps)
     logits = qmatmul(h[0], params["lm_head"], compute)
     return logits.float(), cache
@@ -297,6 +312,49 @@ def _mask_logits(logits: torch.Tensor, top_k: int,
     return logits
 
 
+def sampling_args(config, T: int, steps: int, max_len: Optional[int],
+                  temperature: float, top_k: int, top_p: float,
+                  generator: Optional[torch.Generator]):
+    """``generate``'s checks of its sampling surface; returns (max_len,
+    top_k, top_p) with a top_k past the vocab and a top_p of 1 or more
+    turned off."""
+    max_len = max_len or (T + steps)
+    if T + steps > max_len:
+        raise ValueError(f"{T} prompt + {steps} steps > max_len {max_len}")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature sampling needs a torch.Generator")
+    top_k = 0 if top_k >= config.vocab_size else top_k
+    top_p = 0.0 if top_p >= 1.0 else top_p
+    if (top_k or top_p > 0.0) and temperature <= 0.0:
+        raise ValueError("top_k/top_p require temperature > 0 (greedy "
+                         "already picks the single best token)")
+    return max_len, top_k, top_p
+
+
+def sample(logits: torch.Tensor, cache, step, T: int, steps: int,
+           temperature: float, top_k: int, top_p: float,
+           generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``steps`` tokens from the prompt's last logits [B, vocab] and its
+    ``cache``: pick, then ``step(cache, token, t)`` -> (logits, cache) at
+    positions T, T+1, ...; returns [B, steps] on the logits' device."""
+    def pick(logits):
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        # Temperature FIRST: the nucleus must hold top_p of the mass of the
+        # distribution actually sampled from.
+        logits = _mask_logits(logits / temperature, top_k, top_p)
+        return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                                 generator=generator)[:, 0]
+
+    token = pick(logits)
+    out = [token]
+    for i in range(steps - 1):
+        logits, cache = step(cache, token, T + i)
+        token = pick(logits)
+        out.append(token)
+    return torch.stack(out, dim=1)
+
+
 def generate(params, prompt: torch.Tensor, config: llama.LlamaConfig, *,
              steps: int, max_len: Optional[int] = None,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
@@ -311,34 +369,13 @@ def generate(params, prompt: torch.Tensor, config: llama.LlamaConfig, *,
     (prefill stays full precision).  Tokens stay on the device; the caller
     copies them once.
     """
-    B, T = prompt.shape
-    max_len = max_len or (T + steps)
-    if T + steps > max_len:
-        raise ValueError(f"{T} prompt + {steps} steps > max_len {max_len}")
-    if temperature > 0.0 and generator is None:
-        raise ValueError("temperature sampling needs a torch.Generator")
-    top_k = 0 if top_k >= config.vocab_size else top_k
-    top_p = 0.0 if top_p >= 1.0 else top_p
-    if (top_k or top_p > 0.0) and temperature <= 0.0:
-        raise ValueError("top_k/top_p require temperature > 0 (greedy "
-                         "already picks the single best token)")
-
+    T = prompt.shape[1]
+    max_len, top_k, top_p = sampling_args(config, T, steps, max_len,
+                                          temperature, top_k, top_p,
+                                          generator)
     logits, cache = prefill(params, prompt, config, max_len)
     step_params = quantize_weights(params) if quantize else params
-
-    def pick(logits):
-        if temperature <= 0.0:
-            return torch.argmax(logits, dim=-1)
-        # Temperature FIRST: the nucleus must hold top_p of the mass of the
-        # distribution actually sampled from.
-        logits = _mask_logits(logits / temperature, top_k, top_p)
-        return torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                                 generator=generator)[:, 0]
-
-    token = pick(logits)
-    out = [token]
-    for i in range(steps - 1):
-        logits, cache = decode_step(step_params, cache, token, T + i, config)
-        token = pick(logits)
-        out.append(token)
-    return torch.stack(out, dim=1)
+    return sample(logits, cache,
+                  lambda cache, token, t: decode_step(step_params, cache,
+                                                      token, t, config),
+                  T, steps, temperature, top_k, top_p, generator)

@@ -1,20 +1,24 @@
-"""Sample from a Llama model with the KV-cache decoder (offline generate).
+"""Sample from a Llama or MoE model with the KV-cache decoder (offline
+generate).
 
 Port of the JAX package's ``workloads/generate.py``: the parameters come
-from the trainer's checkpoint (``llama_elastic``'s ``<dir>/llama``, the
-same path contract, ``workloads/train.py`` ``CheckpointState``) without
-reading the optimizer moments, or from a seeded random init where there is
-no checkpoint.
+from the family's trainer's checkpoint (``llama_elastic``'s
+``<dir>/llama`` or ``moe_pretrain``'s ``<dir>/moe``, the same path
+contract, ``workloads/train.py`` ``CheckpointState``) without reading the
+optimizer moments, or from a seeded random init where there is no
+checkpoint.
 
 Run: ``python -m trainingjob_operator_tpu_torch.workloads.generate
-[--device cuda|cpu]``.  Env: LLAMA_CONFIG=tiny|124m|7b (the trainer's
-configs; the JAX module reads tiny|7b), GEN_STEPS (default 32),
-GEN_BATCH (default 1), GEN_TEMPERATURE (0 = greedy), GEN_TOP_K /
-GEN_TOP_P (need a temperature), GEN_SEED, GEN_PROMPT (comma-separated
-token ids; default "1"), GEN_QUANT=1 (weight-only int8 decode),
-LLAMA_WINDOW (sliding-window span; must match the trainer's),
-TRAININGJOB_CHECKPOINT_DIR (the trainer's checkpoint root).
-GEN_FAMILY=moe is not ported.
+[--device cuda|cpu]``.  Env: GEN_FAMILY=llama|moe (which trainer's
+checkpoint to sample; any value but "moe" is Llama), LLAMA_CONFIG=tiny|
+124m|7b (the trainer's configs; the JAX module reads tiny|7b) or
+MOE_CONFIG=tiny|8x7b, GEN_STEPS (default 32), GEN_BATCH (default 1),
+GEN_TEMPERATURE (0 = greedy), GEN_TOP_K / GEN_TOP_P (need a temperature),
+GEN_SEED, GEN_PROMPT (comma-separated token ids; default "1"), GEN_QUANT=1
+(weight-only int8 decode; Llama only: with MoE it warns and decodes at
+full precision, as in JAX), LLAMA_WINDOW / MOE_WINDOW (sliding-window
+span; must match the trainer's), TRAININGJOB_CHECKPOINT_DIR (the trainer's
+checkpoint root).
 """
 
 from __future__ import annotations
@@ -23,28 +27,42 @@ import argparse
 import dataclasses
 import os
 import sys
-from typing import List, Optional, Tuple
+from typing import List, Mapping, Optional, Tuple
 
 import torch
 
 from trainingjob_operator_tpu_torch import resolve_device
 
 
-def restore_params(cfg, device) -> Tuple[dict, int]:
-    """(params, step) of the trainer's newest checkpoint under
-    ``TRAININGJOB_CHECKPOINT_DIR`` (``<dir>/llama``), as the sampler's
+def family_config(env: Mapping[str, str]) -> Tuple[str, object]:
+    """(family, config) from GEN_FAMILY and the family's config name, as
+    the JAX ``generate`` and ``serve`` read them: "moe" with MOE_CONFIG
+    (8x7b, else tiny), any other family Llama with LLAMA_CONFIG."""
+    from trainingjob_operator_tpu_torch.models import llama, moe
+
+    if env.get("GEN_FAMILY", "llama") == "moe":
+        return "moe", moe.CONFIGS.get(env.get("MOE_CONFIG", "tiny"),
+                                      moe.MoEConfig.tiny)()
+    return "llama", llama.CONFIGS.get(env.get("LLAMA_CONFIG", "tiny"),
+                                      llama.LlamaConfig.tiny)()
+
+
+def restore_params(cfg, device, family: str = "llama") -> Tuple[dict, int]:
+    """(params, step) of the family's trainer's newest checkpoint under
+    ``TRAININGJOB_CHECKPOINT_DIR`` (``<dir>/<family>``), as the sampler's
     leaves on ``device`` (compute dtype for the matmul weights), or a
     seeded random init and step 0 where there is none.  The placeholder
     skips the AdamW moments: twice the parameters, never read here."""
-    from trainingjob_operator_tpu_torch.models import llama
+    from trainingjob_operator_tpu_torch.models import llama, moe
     from trainingjob_operator_tpu_torch.workloads import rendezvous, train
 
+    model = moe if family == "moe" else llama
     state = train.CheckpointState.restore_or_init(
         rendezvous.from_env(),
-        {"params": llama.init_params(
+        {"params": model.init_params(
             cfg, torch.Generator(device=device).manual_seed(0), device),
          "opt_state": train.ckpt_placeholder(), "step": 0},
-        subdir="llama")
+        subdir=family)
     return state.value["params"], int(state.value["step"])
 
 
@@ -55,14 +73,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
 
-    from trainingjob_operator_tpu_torch.models import decode, llama
+    from trainingjob_operator_tpu_torch.models import decode, moe_decode
 
     env = os.environ
-    if env.get("GEN_FAMILY", "llama") != "llama":
-        raise SystemExit("GEN_FAMILY: only 'llama' is ported")
-    cfg = llama.CONFIGS.get(env.get("LLAMA_CONFIG", "tiny"),
-                            llama.LlamaConfig.tiny)()
-    window = int(env.get("LLAMA_WINDOW", "0"))
+    family, cfg = family_config(env)
+    window = int(env.get("MOE_WINDOW" if family == "moe" else
+                         "LLAMA_WINDOW", "0"))
     if window:
         cfg = dataclasses.replace(cfg, sliding_window=window)
     steps = int(env.get("GEN_STEPS", "32"))
@@ -74,7 +90,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     quantize = env.get("GEN_QUANT", "") in ("1", "true")
     prompt_ids = [int(x) for x in env.get("GEN_PROMPT", "1").split(",")]
 
-    params, step = restore_params(cfg, device)
+    params, step = restore_params(cfg, device, family)
     if step == 0:
         print("warning: no checkpoint found, sampling from random init",
               flush=True)
@@ -84,11 +100,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                           device=device)
     generator = (torch.Generator(device=device).manual_seed(seed)
                  if temperature > 0 else None)
-    if quantize:
-        print("decoding with weight-only int8", flush=True)
-    out = decode.generate(params, prompt, cfg, steps=steps,
-                          temperature=temperature, top_k=top_k, top_p=top_p,
-                          generator=generator, quantize=quantize)
+    sampling = dict(steps=steps, temperature=temperature, top_k=top_k,
+                    top_p=top_p, generator=generator)
+    if family == "moe":
+        if quantize:
+            print("warning: GEN_QUANT is not supported for GEN_FAMILY=moe; "
+                  "decoding in full precision", flush=True)
+        out = moe_decode.generate(params, prompt, cfg, **sampling)
+    else:
+        if quantize:
+            print("decoding with weight-only int8", flush=True)
+        out = decode.generate(params, prompt, cfg, quantize=quantize,
+                              **sampling)
     for row in out.tolist():
         print("tokens:", ",".join(str(t) for t in row), flush=True)
     return 0

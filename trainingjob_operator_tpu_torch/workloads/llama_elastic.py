@@ -75,8 +75,10 @@ from trainingjob_operator_tpu_torch import resolve_device
 
 def make_step_fn(params, cfg, *, accum: int, lr: float, remat="none",
                  ce_chunk: int = 0, opt_state: Optional[dict] = None,
-                 mesh=None) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The train step of ``main``: loss and gradients of ``llama.loss_fn``
+                 mesh=None, loss_fn: Optional[Callable] = None
+                 ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The train step of ``main``: loss and gradients of ``loss_fn``
+    (default ``llama.loss_fn``; ``moe_pretrain`` passes ``moe.loss_fn``)
     over ``accum`` interleaved microbatches, then one AdamW update
     (``optax.adamw(lr, b1=0.9, b2=0.95, weight_decay=0.1)``, as
     ``llama_elastic.py:111`` builds it) from ``opt_state`` (zeros when
@@ -94,10 +96,11 @@ def make_step_fn(params, cfg, *, accum: int, lr: float, remat="none",
 
     opt = train.AdamW(params, lr, b1=0.9, b2=0.95, weight_decay=0.1,
                       state=opt_state)
+    model_loss = loss_fn or llama.loss_fn
 
     def loss(p, tokens):
-        return llama.loss_fn(p, {"tokens": tokens}, cfg, remat=remat,
-                             ce_chunk=ce_chunk, mesh=mesh)
+        return model_loss(p, {"tokens": tokens}, cfg, remat=remat,
+                          ce_chunk=ce_chunk, mesh=mesh)
 
     def step_fn(tokens):
         value, grads = train.accumulated_value_and_grad(loss, params, tokens,

@@ -1,10 +1,14 @@
 """Serving plane: open-loop request queue + continuous-batching decode.
 
 Port of the JAX package's ``workloads/serve.py``.  One fixed-shape batched
-decode step (``decode.serve_step``) runs every scheduler tick over a slot
-map; a prompt prefills in fixed-size chunks (``decode.prefill_chunk``, one
-slot per tick) interleaved with decode; admission zeroes the slot's K/V
-(``decode.reset_slot``) and survivors are never re-prefilled.  The
+decode step (``serve_step``) runs every scheduler tick over a slot map; a
+prompt prefills in fixed-size chunks (``prefill_chunk``, one slot per tick)
+interleaved with decode; admission zeroes the slot's K/V
+(``decode.reset_slot``) and survivors are never re-prefilled.  The model
+family picks the module: ``models/decode.py`` for Llama,
+``models/moe_decode.py`` for MoE, whose cache has the same layout and so
+the same ``decode.reset_slot`` (the JAX service looks for a
+``moe_decode.reset_slot`` that does not exist, and fails to start).  The
 admission queue is bounded (``QueueFull``).  ``policy="static"`` is the
 gang-batching baseline: admit only into an all-free batch.
 
@@ -14,10 +18,12 @@ copies one [slots] vector of picks to the host.
 Run: ``python -m trainingjob_operator_tpu_torch.workloads.serve
 [--device cuda|cpu]``.  Env (``constants.py``): TRAININGJOB_SERVE_SLOTS,
 _MAX_LEN, _PREFILL_CHUNK, _QUEUE_CAP, _RATE, _REQUESTS (0 = serve
-forever), _QUANT, plus LLAMA_CONFIG=tiny|124m|7b and
-TRAININGJOB_CHECKPOINT_DIR: ``main`` serves the trainer's checkpoint (the
-parameters only, as ``generate``), or a seeded random init where there is
-none, and sends its serve and request records to
+forever), _QUANT (Llama only; ignored for MoE, as in JAX), plus
+GEN_FAMILY=llama|moe (any value but "moe" is Llama), LLAMA_CONFIG=tiny|
+124m|7b or MOE_CONFIG=tiny|8x7b, and TRAININGJOB_CHECKPOINT_DIR: ``main``
+serves the family's trainer's checkpoint (``<dir>/llama`` or
+``<dir>/moe``; the parameters only, as ``generate``), or a seeded random
+init where there is none, and sends its serve and request records to
 TRAININGJOB_TELEMETRY_ADDR (``obs/telemetry.py``).
 """
 
@@ -34,7 +40,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import torch
 
 from trainingjob_operator_tpu_torch import constants, resolve_device
-from trainingjob_operator_tpu_torch.models import decode
+from trainingjob_operator_tpu_torch.models import decode, moe_decode
 
 #: Slot states: FREE rows ride the batched step as junk rows, PREFILL rows
 #: consume one prompt chunk per tick, DECODE rows emit one token per tick.
@@ -114,11 +120,17 @@ class _Slot:
         self.last_emit = 0.0   # wall time of this slot's last token
 
 
+#: The model module of each family: its ``serve_step`` and
+#: ``prefill_chunk`` drive the plane.
+FAMILIES = {"llama": decode, "moe": moe_decode}
+
+
 class DecodeService:
     """Continuous-batching scheduler over one fixed-shape decode batch.
 
     ``params`` (fp or weight-only int8, on ``device``) and the KV cache
-    ([L, slots, max_len, Hkv, Dh], allocated once) live on ``device``.
+    ([L, slots, max_len, Hkv, Dh], allocated once) live on ``device``;
+    ``family`` ("llama" or "moe") picks the model module.
     ``max_len`` must be a multiple of ``prefill_chunk``: a last chunk that
     ran past the cache could not be written where its positions say (the
     JAX package's ``dynamic_update_slice`` would clamp it to shifted
@@ -129,11 +141,16 @@ class DecodeService:
     def __init__(self, params, config, *, slots: int = 4,
                  max_len: Optional[int] = None, prefill_chunk: int = 16,
                  queue_cap: int = 64, eos_id: int = -1,
-                 policy: str = "continuous", emitter=None,
-                 device="cuda"):
+                 family: str = "llama", policy: str = "continuous",
+                 emitter=None, device="cuda"):
         self.device = resolve_device(device)
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown policy {policy!r}")
+        if family not in FAMILIES:
+            raise ValueError(f"unknown family {family!r}; expected one of "
+                             f"{sorted(FAMILIES)}")
+        self.family = family
+        self.model = FAMILIES[family]
         if config.sliding_window:
             raise ValueError(
                 "the serving plane requires a full-causal cache "
@@ -180,10 +197,11 @@ class DecodeService:
         kernels).  Leaves slot 0 zeroed, like the JAX warmup."""
         n = len(self.slots)
         zeros = self._ids([0] * n)
-        decode.prefill_chunk(self.params, self.cache,
-                             self._ids([0] * self.prefill_chunk), 0, 0,
-                             self.config)
-        decode.serve_step(self.params, self.cache, zeros, zeros, self.config)
+        self.model.prefill_chunk(self.params, self.cache,
+                                 self._ids([0] * self.prefill_chunk), 0, 0,
+                                 self.config)
+        self.model.serve_step(self.params, self.cache, zeros, zeros,
+                              self.config)
         decode.reset_slot(self.cache, 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -269,7 +287,7 @@ class DecodeService:
                                sl.prefill_pos + self.prefill_chunk]
             valid = len(chunk)
             chunk = chunk + [0] * (self.prefill_chunk - valid)
-            logits, self.cache = decode.prefill_chunk(
+            logits, self.cache = self.model.prefill_chunk(
                 self.params, self.cache, self._ids(chunk), idx,
                 sl.prefill_pos, self.config)
             self.prefill_calls += 1
@@ -306,7 +324,7 @@ class DecodeService:
             else:
                 toks.append(0)
                 ts.append(0)
-        logits, self.cache = decode.serve_step(
+        logits, self.cache = self.model.serve_step(
             self.params, self.cache, self._ids(toks), self._ids(ts),
             self.config)
         self.decode_calls += 1
@@ -484,15 +502,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
 
-    from trainingjob_operator_tpu_torch.models import llama
     from trainingjob_operator_tpu_torch.obs.telemetry import TelemetryEmitter
     from trainingjob_operator_tpu_torch.workloads.generate import (
+        family_config,
         restore_params,
     )
 
     env = os.environ
-    cfg = llama.CONFIGS.get(env.get("LLAMA_CONFIG", "tiny"),
-                            llama.LlamaConfig.tiny)()
+    family, cfg = family_config(env)
     slots = int(env.get(constants.SERVE_SLOTS_ENV, "4"))
     max_len = int(env.get(constants.SERVE_MAX_LEN_ENV, "0")) or None
     chunk = int(env.get(constants.SERVE_PREFILL_CHUNK_ENV, "16"))
@@ -503,10 +520,10 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     # The checkpoint contract of workloads/generate.py: the trained
     # parameters where a checkpoint exists, a random init otherwise.
-    params, step = restore_params(cfg, device)
+    params, step = restore_params(cfg, device, family)
     print(f"serving the checkpoint at step {step}" if step else
           "serving a seeded random init (no checkpoint found)", flush=True)
-    if quantize:
+    if quantize and family != "moe":
         from trainingjob_operator_tpu_torch.models.quant import (
             quantize_weights)
 
@@ -515,8 +532,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     service = DecodeService(params, cfg, slots=slots, max_len=max_len,
                             prefill_chunk=chunk, queue_cap=queue_cap,
-                            emitter=TelemetryEmitter(), device=device)
-    print(f"serve: device={device} slots={slots} "
+                            family=family, emitter=TelemetryEmitter(),
+                            device=device)
+    print(f"serve: family={family} device={device} slots={slots} "
           f"max_len={service.max_len} chunk={chunk} queue_cap={queue_cap} "
           f"rate={rate}", flush=True)
 
