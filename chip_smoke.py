@@ -119,19 +119,29 @@ script exits non-zero):
    dK/dV and 2 L + 1 RMSNorms; step time, tokens/s, peak memory, a step
    profile and its split into expert GEMMs, dispatch/combine, the other
    GEMMs, the kernels and the rest (``gemm_split``).
+16a. sharded_moe_width: phase 16 through the multi-process path at world
+   1, as phase 9 (a group of one on NCCL, the mesh of
+   ``mesh_spec_from_rendezvous(expert_parallel=1)``, the MoE sharding
+   rules, the sharded init and the mesh step; ``moe_mesh_collectives``:
+   per layer 8 all-gathers, 8 reduce-scatters and 16 all-reduces); its 8
+   losses equal phase 16's within SHARDED_LOSS_RTOL; step time, peak
+   memory and their gap to phase 16.
 17. moe_resume: the MoE trainer's entry point (``python -m
-   ...workloads.moe_pretrain``, MOE_CONFIG=tiny) as processes on one
-   checkpoint directory: uninterrupted, SIGTERM after step 4 (exit 143,
-   the step committed), a restart whose losses equal the uninterrupted
-   run's bit for bit; then the ``generate`` and ``serve`` mains with
-   GEN_FAMILY=moe on the checkpoint.
+   ...workloads.moe_pretrain``, MOE_CONFIG=tiny) as processes, on one
+   card and with a coordinator at world 1 (a group of one on NCCL, the
+   mesh path, a sharded checkpoint), each on its own checkpoint
+   directory: uninterrupted, SIGTERM after step 4 (exit 143, the step
+   committed), a restart whose losses equal the same path's
+   uninterrupted run's bit for bit; then the ``generate`` main with
+   GEN_FAMILY=moe on each checkpoint (the sharded one too) and ``serve``
+   on the single-card one.
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
 dK/dV, with their launches on the paths driven (the 7B phases 5-9 and 13,
 the 124M trainer of phases 10-11 and 14 and the Mixtral-width phases
-15-16 run the bf16 tensor-core kernels, the tiny fp32 phases 3-4a and 12
+15-16a run the bf16 tensor-core kernels, the tiny fp32 phases 3-4a and 12
 and the tiny MoE trainer of phase 17 (head dim 16) the f32-FMA ones; a
 trainer process reports its launches when it returns) and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -750,19 +760,31 @@ def train_equivalence(torch, cfg, init, llama_elastic, train, *, accum,
             "grad_rtol": 1e-4, "grad_atol": 1e-4, **result}
 
 
-def mesh_collectives(L: int, micro_steps: int):
+def mesh_collectives(L: int, micro_steps: int, weights: int = 7,
+                     sums: int = 4):
     """Collective launches of ``micro_steps`` microbatch steps of an
     L-layer model on a mesh under remat "none" (``parallel/
-    collectives.py``).  A microbatch all-gathers each layer's 7 weights
-    over fsdp, and tok_embed and lm_head over fsdp and tp; reduce-scatters
-    the gradients of those 7 L + 2 over fsdp; and all-reduces, a layer,
-    the products of wo and w_down over tp (forward), the gradients of the
-    two tp inputs (backward) and of the 7 weights over dp, and once the
-    loss over dp and fsdp, tok_embed's and lm_head's gradients over dp and
-    those of the three norm scales over dp and fsdp."""
-    return {"all_gather": micro_steps * (7 * L + 4),
-            "reduce_scatter": micro_steps * (7 * L + 2),
-            "all_reduce": micro_steps * (11 * L + 10)}
+    collectives.py``).  A microbatch all-gathers each layer's ``weights``
+    weights over fsdp, and tok_embed and lm_head over fsdp and tp;
+    reduce-scatters the gradients of those ``weights`` L + 2 over fsdp;
+    and all-reduces, a layer, ``sums`` times over a model axis and the
+    gradients of the ``weights`` weights over dp, and once the loss over
+    dp and fsdp, tok_embed's and lm_head's gradients over dp and those of
+    the three norm scales over dp and fsdp.  Llama: 7 weights, and over tp
+    the products of wo and w_down (forward) and the gradients of the two
+    tp inputs (backward).  MoE (``moe_mesh_collectives``): 8 weights (the
+    router too), and 8 sums."""
+    return {"all_gather": micro_steps * (weights * L + 4),
+            "reduce_scatter": micro_steps * (weights * L + 2),
+            "all_reduce": micro_steps * ((weights + sums) * L + 10)}
+
+
+def moe_mesh_collectives(L: int, micro_steps: int):
+    """``mesh_collectives`` of the MoE family: a layer sums wo's product
+    and the gradient of its input over tp, and the experts' output and the
+    gradients of their input and of the gates over tp and ep (one
+    all-reduce per axis): 1 + 1 + 3 x 2 = 8."""
+    return mesh_collectives(L, micro_steps, weights=8, sums=8)
 
 
 def train_7b_width(torch, llama, llama_elastic, remat=None, mesh=None):
@@ -877,12 +899,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def sharded_7b_width(torch, llama, llama_elastic, plain):
-    """``train_7b_width`` through the multi-process path at world 1: the
+def on_group_of_one(torch, run, plain, what, **mesh_args):
+    """``run(mesh)`` through the multi-process path at world 1: the
     process group formed by ``rendezvous.initialize_distributed`` on NCCL,
-    the mesh of ``mesh_spec_from_rendezvous``, the sharded init and step,
-    every collective launched over the group of one.  Losses against the
-    single-card run ``plain`` within SHARDED_LOSS_RTOL."""
+    the mesh of ``mesh_spec_from_rendezvous(**mesh_args)``, every
+    collective launched over the group of one.  Its losses against the
+    single-card run ``plain`` within SHARDED_LOSS_RTOL; the step time and
+    peak memory against it."""
     import torch.distributed as dist
 
     from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
@@ -894,26 +917,45 @@ def sharded_7b_width(torch, llama, llama_elastic, plain):
     t0 = time.perf_counter()
     device = rendezvous.initialize_distributed(rdv, torch.device("cuda"))
     try:
-        mesh = pmesh.make_mesh(pmesh.mesh_spec_from_rendezvous(rdv),
-                               device.type)
+        mesh = pmesh.make_mesh(
+            pmesh.mesh_spec_from_rendezvous(rdv, **mesh_args), device.type)
         group_s = time.perf_counter() - t0
-        run = train_7b_width(torch, llama, llama_elastic, mesh=mesh)
+        out = run(mesh)
     finally:
         dist.destroy_process_group()
     rel = max(abs(a - b) / abs(b)
-              for a, b in zip(run["losses"], plain["losses"]))
+              for a, b in zip(out["losses"], plain["losses"]))
     if not rel <= SHARDED_LOSS_RTOL:
-        raise AssertionError(f"7B-width train on a mesh: losses "
-                             f"{run['losses']} vs single-card "
-                             f"{plain['losses']}")
-    return {**run, "backend": "nccl", "world": 1, "mesh": mesh.sizes,
+        raise AssertionError(f"{what} on a mesh: losses {out['losses']} "
+                             f"vs single-card {plain['losses']}")
+    return {**out, "backend": "nccl", "world": 1, "mesh": mesh.sizes,
             "group_s": group_s, "loss_rtol": SHARDED_LOSS_RTOL,
             "loss_max_rel_err_vs_single_card": rel,
-            "losses_equal_single_card": run["losses"] == plain["losses"],
+            "losses_equal_single_card": out["losses"] == plain["losses"],
             "step_s_ratio_vs_single_card":
-                run["step_s_median"] / plain["step_s_median"],
+                out["step_s_median"] / plain["step_s_median"],
             "peak_mem_gib_minus_single_card":
-                run["peak_mem_gib"] - plain["peak_mem_gib"]}
+                out["peak_mem_gib"] - plain["peak_mem_gib"]}
+
+
+def sharded_7b_width(torch, llama, llama_elastic, plain):
+    """``train_7b_width`` through the multi-process path at world 1
+    (``on_group_of_one``): the sharded init and step on the mesh."""
+    return on_group_of_one(
+        torch, lambda mesh: train_7b_width(torch, llama, llama_elastic,
+                                           mesh=mesh),
+        plain, "7B-width train")
+
+
+def sharded_moe_width(torch, moe, llama_elastic, train, plain):
+    """``train_moe_width`` through the multi-process path at world 1
+    (``on_group_of_one``, the mesh of ``expert_parallel=1``): the MoE
+    sharding rules, the sharded init and the mesh step, whose experts'
+    sums run over tp and ep."""
+    return on_group_of_one(
+        torch, lambda mesh: train_moe_width(torch, moe, llama_elastic, train,
+                                            mesh=mesh),
+        plain, "MoE-width train", expert_parallel=1)
 
 
 def trainer_code(module: str = "llama_elastic") -> str:
@@ -2009,28 +2051,32 @@ def gemm_split(torch, step, classify, n: int = 2):
             else {}}
 
 
-def train_moe_width(torch, moe, llama_elastic, train):
+def train_moe_width(torch, moe, llama_elastic, train, mesh=None):
     """The MoE trainer's step (``llama_elastic.make_step_fn`` with
     ``moe.loss_fn``) at Mixtral-8x7B widths, 2 of its 32 layers (f32
     masters, gradients and AdamW moments of 3.16e9 parameters: 50.6 GB),
     bf16 compute, seq 4096, global batch 2, remat "none": 8 steps on one
     repeated batch; the loss falls, every flash forward, dQ and dK/dV
     launch on the tensor cores (L a step each) and 2 L + 1 RMSNorms a
-    step; step time, tokens/s, peak memory, a step profile and its split
-    into expert GEMMs, dispatch/combine, dense GEMMs, kernels and other
-    work (``gemm_split``)."""
+    step; step time, tokens/s, peak memory, a step profile and, without a
+    ``mesh``, its split into expert GEMMs, dispatch/combine, dense GEMMs,
+    kernels and other work (``gemm_split``).  On ``mesh`` where given,
+    its collectives counted (``moe_mesh_collectives``)."""
     from trainingjob_operator_tpu_torch import ops
+    from trainingjob_operator_tpu_torch.parallel import collectives
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(moe.MoEConfig.mixtral_8x7b(), n_layers=2)
     seq, batch, steps, lr, remat = 4096, 2, 8, 3e-4, "none"
     t0 = time.perf_counter()
     params = moe.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), dev, master=True)
+        cfg, torch.Generator(device=dev).manual_seed(0), dev, master=True,
+        mesh=mesh)
     for leaf in train.tree_leaves(params):
         leaf.requires_grad_(True)
     step_fn = llama_elastic.make_step_fn(params, cfg, accum=1, lr=lr,
-                                         remat=remat, loss_fn=moe.loss_fn)
+                                         remat=remat, mesh=mesh,
+                                         loss_fn=moe.loss_fn)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -2038,12 +2084,21 @@ def train_moe_width(torch, moe, llama_elastic, train):
                            generator=gen, device=dev)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    collectives.reset_collective_counts()
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
         losses.append(float(step_fn(tokens)))
         step_s.append(time.perf_counter() - t)
     counts = ops.launch_counts()
+    sent = collectives.collective_counts()
+    want = {k: 0 for k in sent}
+    if mesh is not None:
+        want = {k: n * steps for k, n in
+                moe_mesh_collectives(cfg.n_layers, 1).items()}
+    if sent != want:
+        raise AssertionError(f"MoE-width train: collectives {sent}, "
+                             f"expected {want}")
     peak = torch.cuda.max_memory_allocated()
     per_step = train_launches(cfg.n_layers, remat, 1, tensor_cores=True)
     if counts != {k: n * steps for k, n in per_step.items()}:
@@ -2059,18 +2114,21 @@ def train_moe_width(torch, moe, llama_elastic, train):
         dims = {d for shape in shapes for d in (shape or ())}
         return "expert_gemm" if cfg.ffn_dim in dims else "dispatch_combine"
 
-    return {"n_layers": cfg.n_layers, "n_params": moe.num_params(cfg),
-            "active_params": moe.active_params(cfg),
-            "capacity": moe.expert_capacity(cfg, seq), "seq": seq,
-            "global_batch": batch, "remat": remat, "lr": lr,
-            "init_s": init_s, "losses": losses, "step_s": step_s,
-            "step_s_median": steady, "tokens_per_s": batch * seq / steady,
-            "peak_mem_gib": peak / 2 ** 30,
-            "launches_per_step": per_step, "launches": counts,
-            "step_profile": profile_steps(torch, lambda: step_fn(tokens),
-                                          n=2),
-            "step_split": gemm_split(torch, lambda: step_fn(tokens),
-                                     classify)}
+    out = {"n_layers": cfg.n_layers, "n_params": moe.num_params(cfg),
+           "active_params": moe.active_params(cfg),
+           "capacity": moe.expert_capacity(cfg, seq), "seq": seq,
+           "global_batch": batch, "remat": remat, "lr": lr,
+           "init_s": init_s, "losses": losses, "step_s": step_s,
+           "step_s_median": steady, "tokens_per_s": batch * seq / steady,
+           "peak_mem_gib": peak / 2 ** 30,
+           "launches_per_step": per_step, "launches": counts,
+           "collectives": sent,
+           "step_profile": profile_steps(torch, lambda: step_fn(tokens),
+                                         n=2)}
+    if mesh is None:
+        out["step_split"] = gemm_split(torch, lambda: step_fn(tokens),
+                                       classify)
+    return out
 
 
 @contextlib.contextmanager
@@ -2112,12 +2170,15 @@ MOE_RESUME_STEPS = 40
 
 def moe_resume(torch, moe, moe_decode, train, sink, workdir):
     """The MoE trainer's entry point (``python -m ...moe_pretrain``) at
-    MOE_CONFIG=tiny (bf16, seq 128, batch 8), as processes on the card:
-    a run given SIGTERM after step 4, which must exit 143 with its step
-    committed (beside it, an uninterrupted run on another directory); a
-    restart, whose losses (from the telemetry records) equal the
-    uninterrupted run's bit for bit; then the ``generate`` and ``serve``
-    mains with GEN_FAMILY=moe on the checkpoint."""
+    MOE_CONFIG=tiny (bf16, seq 128, batch 8), as processes on the card,
+    on two paths: one card (no coordinator, the single-process checkpoint
+    format) and a coordinator at world 1 (a group of one on NCCL, the mesh
+    path and the sharded format).  On each: a run given SIGTERM after step
+    4, which must exit 143 with its step committed (beside it, an
+    uninterrupted run of the same path on another directory); a restart,
+    whose losses (from the telemetry records) equal the uninterrupted
+    run's bit for bit; then the ``generate`` main with GEN_FAMILY=moe on
+    its checkpoint (and ``serve`` on the single-card one)."""
     import os
 
     from trainingjob_operator_tpu_torch.workloads import generate
@@ -2126,8 +2187,10 @@ def moe_resume(torch, moe, moe_decode, train, sink, workdir):
     N = MOE_RESUME_STEPS
     code = trainer_code("moe_pretrain")
     runs, launches = {}, []
+    cfg = moe.MoEConfig.tiny()
+    prompt = [1, 45, 96, 17, 29]
 
-    def env_of(job, ckpt):
+    def env_of(job, ckpt, mesh):
         env = dict(os.environ)
         env.update({"MOE_CONFIG": "tiny", "MOE_STEPS": str(N),
                     "MOE_CKPT_EVERY": str(RESUME_CKPT_EVERY),
@@ -2135,10 +2198,14 @@ def moe_resume(torch, moe, moe_decode, train, sink, workdir):
                     "TRAININGJOB_TELEMETRY_ADDR": sink.address,
                     "TRAININGJOB_NAMESPACE": "smoke",
                     "TRAININGJOB_NAME": job})
+        if mesh:
+            env.update({"TRAININGJOB_COORDINATOR_ADDRESS":
+                        f"127.0.0.1:{free_port()}",
+                        "TRAININGJOB_NUM_PROCESSES": "1"})
         return env
 
-    def run(job, ckpt, sigterm_after=""):
-        return record(job, *run_trainer(env_of(job, ckpt), 300,
+    def run(job, ckpt, mesh, sigterm_after=""):
+        return record(job, *run_trainer(env_of(job, ckpt, mesh), 300,
                                         sigterm_after, code))
 
     def record(job, rc, lines, counts, secs):
@@ -2152,48 +2219,77 @@ def moe_resume(torch, moe, moe_decode, train, sink, workdir):
                      "losses": {r["step"] + 1: r["loss"] for r in recs}}
         return rc, lines
 
-    ckpt = os.path.join(workdir, "moe_resume")
-    # The uninterrupted run, on its own directory, beside the preempted one.
-    with trainer_beside(env_of("moe_uninterrupted",
-                               os.path.join(workdir, "moe_plain")),
-                        code) as uninterrupted:
-        rc, lines = run("moe_preempted", ckpt, sigterm_after=SIGTERM_AFTER)
-        rc_plain, lines_plain = record("moe_uninterrupted",
-                                       *uninterrupted(300))
-    expect(rc_plain == 0 and sorted(runs["moe_uninterrupted"]["losses"])
-           == list(range(1, N + 1)), "MoE uninterrupted run", lines_plain)
-    want = runs["moe_uninterrupted"]["losses"]
-    expect(rc == 143 and lines[-1]
-           == "preemption checkpoint committed; exiting 143",
-           f"MoE preempted run exited {rc}", lines)
-    k = train.committed_steps(os.path.join(ckpt, "moe"))[0]
-    expect(4 <= k < N, f"MoE preempted run committed step {k}", lines)
-    rc, lines = run("moe_restarted", ckpt)
-    got = runs["moe_restarted"]["losses"]
-    expect(rc == 0 and f"resumed at step {k} (width 1)" in lines,
-           "MoE restart did not resume", lines)
-    expect(sorted(got) == list(range(k + 1, N + 1))
-           and all(got[i] == want[i] for i in got),
-           f"MoE restart: losses {got} differ from {want}", lines)
+    def preempted(path, ckpt, rc, lines):
+        expect(rc == 143 and lines[-1]
+               == "preemption checkpoint committed; exiting 143",
+               f"MoE {path} preempted run exited {rc}", lines)
+        k = train.committed_steps(os.path.join(ckpt, "moe"))[0]
+        expect(4 <= k < N, f"MoE {path} preempted run committed step {k}",
+               lines)
+        return k
 
-    cfg = moe.MoEConfig.tiny()
+    def restarted(path, job, ckpt, mesh, k, want):
+        rc, lines = run(job, ckpt, mesh)
+        got = runs[job]["losses"]
+        expect(rc == 0 and f"resumed at step {k} (width 1)" in lines,
+               f"MoE {path} restart did not resume", lines)
+        expect(sorted(got) == list(range(k + 1, N + 1))
+               and all(got[i] == want[i] for i in got),
+               f"MoE {path} restart: losses {got} differ from {want}",
+               lines)
+
+    def generated(path, ckpt, saved):
+        params = train._onto(moe.init_params(cfg, None, "cuda"), saved)
+        rc, out, counts = run_main(
+            torch, generate.main, GEN_FAMILY="moe", GEN_STEPS="16",
+            GEN_PROMPT=",".join(map(str, prompt)),
+            TRAININGJOB_CHECKPOINT_DIR=ckpt)
+        launches.append(counts)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            want_tokens = moe_decode.generate(
+                params, torch.tensor([prompt], device="cuda"), cfg,
+                steps=16)[0].tolist()
+        expect(rc == 0 and f"sampling from checkpoint at step {N}" in out
+               and f"tokens: {','.join(map(str, want_tokens))}" in out,
+               f"MoE {path} generate from the checkpoint: {want_tokens}",
+               out)
+        return want_tokens
+
+    ckpt = os.path.join(workdir, "moe_resume")
+    mesh_ckpt = os.path.join(workdir, "moe_mesh_resume")
+    # The uninterrupted runs, on their own directories, beside the
+    # preempted ones.
+    with trainer_beside(env_of("moe_uninterrupted",
+                               os.path.join(workdir, "moe_plain"), False),
+                        code) as uninterrupted, \
+            trainer_beside(env_of("moe_mesh_uninterrupted",
+                                  os.path.join(workdir, "moe_mesh_plain"),
+                                  True), code) as mesh_uninterrupted:
+        rc, lines = run("moe_preempted", ckpt, False,
+                        sigterm_after=SIGTERM_AFTER)
+        mesh_rc, mesh_lines = run("moe_mesh_preempted", mesh_ckpt, True,
+                                  sigterm_after=SIGTERM_AFTER)
+        plain = {job: record(job, *join(300)) for job, join in (
+            ("moe_uninterrupted", uninterrupted),
+            ("moe_mesh_uninterrupted", mesh_uninterrupted))}
+    for job, (rc_plain, lines_plain) in plain.items():
+        expect(rc_plain == 0 and sorted(runs[job]["losses"])
+               == list(range(1, N + 1)), f"MoE {job} run", lines_plain)
+    expect("mesh {'dp': 1, 'pp': 1, 'fsdp': 1, 'tp': 1, 'sp': 1, 'ep': 1}"
+           in " ".join(plain["moe_mesh_uninterrupted"][1]),
+           "MoE coordinator run: no mesh line",
+           plain["moe_mesh_uninterrupted"][1])
+    k = preempted("single-card", ckpt, rc, lines)
+    mesh_k = preempted("coordinator", mesh_ckpt, mesh_rc, mesh_lines)
+    restarted("single-card", "moe_restarted", ckpt, False, k,
+              runs["moe_uninterrupted"]["losses"])
+    restarted("coordinator", "moe_mesh_restarted", mesh_ckpt, True, mesh_k,
+              runs["moe_mesh_uninterrupted"]["losses"])
+
     saved = torch.load(os.path.join(ckpt, "moe", str(N), "params.pt"),
                        weights_only=True)
-    params = train._onto(moe.init_params(cfg, None, "cuda"), saved)
-    prompt = [1, 45, 96, 17, 29]
-    rc, out, counts = run_main(
-        torch, generate.main, GEN_FAMILY="moe", GEN_STEPS="16",
-        GEN_PROMPT=",".join(map(str, prompt)),
-        TRAININGJOB_CHECKPOINT_DIR=ckpt)
-    launches.append(counts)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)
-        want_tokens = moe_decode.generate(
-            params, torch.tensor([prompt], device="cuda"), cfg,
-            steps=16)[0].tolist()
-    expect(rc == 0 and f"sampling from checkpoint at step {N}" in out
-           and f"tokens: {','.join(map(str, want_tokens))}" in out,
-           f"MoE generate from the checkpoint: {want_tokens}", out)
+    want_tokens = generated("single-card", ckpt, saved)
     rc, out, counts = run_main(
         torch, serve_mod.main, GEN_FAMILY="moe",
         TRAININGJOB_SERVE_REQUESTS="8", TRAININGJOB_CHECKPOINT_DIR=ckpt)
@@ -2204,10 +2300,24 @@ def moe_resume(torch, moe, moe_decode, train, sink, workdir):
            and done.get("completed") == "8"
            and done.get("stale_kv_violations") == "0",
            "MoE serve from the checkpoint", out)
+    step_dir = os.path.join(mesh_ckpt, "moe", str(N))
+    expect(os.listdir(step_dir) == ["shard-0.pt"],
+           f"MoE coordinator checkpoint holds {os.listdir(step_dir)}", [])
+    shard = torch.load(os.path.join(step_dir, "shard-0.pt"),
+                       weights_only=True)
+    mesh_tokens = generated("coordinator", mesh_ckpt,
+                            shard["value"]["params"])
+    single, meshed = (runs[job]["losses"] for job in (
+        "moe_uninterrupted", "moe_mesh_uninterrupted"))
     return {"config": "tiny", "steps": N, "ckpt_every": RESUME_CKPT_EVERY,
-            "preempted_at_committed_step": k, "runs": runs,
+            "preempted_at_committed_step": k,
+            "mesh_preempted_at_committed_step": mesh_k, "runs": runs,
             "bit_identical_after_resume": True,
-            "generate_tokens": want_tokens, "serve_done": done,
+            "mesh_losses_equal_single_card": meshed == single,
+            "mesh_loss_max_rel_err_vs_single_card": max(
+                abs(meshed[i] - single[i]) / abs(single[i]) for i in single),
+            "generate_tokens": want_tokens,
+            "mesh_generate_tokens": mesh_tokens, "serve_done": done,
             "launches": {key: sum(c[key] for c in launches)
                          for key in launches[0]}}
 
@@ -2341,6 +2451,11 @@ def main() -> int:
     emit({"phase": "train_moe_width", "device": name, "nvidia_smi": smi,
           **moe_trained})
     torch.cuda.empty_cache()
+    moe_sharded = sharded_moe_width(torch, moe, llama_elastic, train,
+                                    moe_trained)
+    emit({"phase": "sharded_moe_width", "device": name, "nvidia_smi": smi,
+          **moe_sharded})
+    torch.cuda.empty_cache()
     trained = train_7b_width(torch, llama, llama_elastic)
     emit({"phase": "train_7b_width", "device": name, "nvidia_smi": smi,
           **trained})
@@ -2392,7 +2507,7 @@ def main() -> int:
              sharded, resumed, tel, cross, resized, ladder, tiny,
              *tiny_train_runs(tiny_train), tiny_moe["serve"],
              *tiny_train_runs(tiny_moe["train"]), moe_served, moe_generated,
-             moe_trained, moe_resumed]
+             moe_trained, moe_sharded, moe_resumed]
     launches = {k: sum(p["launches"][k] for p in paths)
                 for k in ops.launch_counts()}
     fma = {key: launches[key] - launches[f"{key}_wgmma"]

@@ -19,6 +19,7 @@ import contextlib
 import dataclasses
 import io
 import re
+import socket
 
 import numpy as np
 import pytest
@@ -86,6 +87,12 @@ def _close(got, want, tol=F32_TOL, name=""):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), rtol=tol,
                                atol=tol, err_msg=name)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _probs(B, T, E, seed):
@@ -208,13 +215,39 @@ class TestLossAndGrads:
                 assert torch.equal(gt[name], g0[name]), name
 
     def test_ce_chunk_must_divide_and_a_mesh_is_refused(self, tree):
+        # ce_chunk must divide T; on a real one-rank mesh (a gloo group of
+        # one) the loss and its chunked form equal the one-process ones,
+        # and the kv stack, which the mesh path does not return, is
+        # refused.
+        import torch.distributed as dist
+
+        from trainingjob_operator_tpu_torch.parallel import mesh as tmesh
+        from trainingjob_operator_tpu_torch.workloads import rendezvous
+
         _, tc = _configs()
         params = _port_params(tree, tc)
         batch = {"tokens": torch.from_numpy(_tokens(T=17))}
         with pytest.raises(ValueError, match="does not divide"):
             tmoe.loss_fn(params, batch, tc, ce_chunk=5)
-        with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-            tmoe.loss_fn(params, batch, tc, mesh=object())
+        rdv = rendezvous.Rendezvous(
+            coordinator_address=f"127.0.0.1:{_free_port()}")
+        rendezvous.initialize_distributed(rdv, torch.device("cpu"))
+        try:
+            mesh = tmesh.make_mesh(tmesh.mesh_spec_from_rendezvous(
+                rdv, expert_parallel=1), "cpu")
+            assert mesh.sizes["ep"] == 1
+            for ce_chunk in (0, 8):
+                want = tmoe.loss_fn(params, batch, tc, ce_chunk=ce_chunk)
+                got = tmoe.loss_fn(params, batch, tc, ce_chunk=ce_chunk,
+                                   mesh=mesh)
+                assert torch.equal(got, want), ce_chunk
+            with pytest.raises(ValueError, match="return_kv is not "
+                                                 "supported with a mesh"):
+                tmoe.forward(params, batch["tokens"][:, :-1], tc,
+                             return_kv=True, mesh=mesh)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
 _RESIDUAL = re.compile(r"^(\w+)\[([\d,]*)\] (.*)$")

@@ -165,8 +165,8 @@ def test_fit_spec_matches_jax_on_every_leaf(config, mesh_name):
 
 
 class _Rank:
-    """A mesh seen from one rank (``coord``, ``size``, ``sizes``) without
-    a process group."""
+    """A mesh seen from one rank (``coord``, ``size``, ``sizes`` and the
+    data shard's size and index) without a process group."""
 
     def __init__(self, spec, index):
         self.sizes = spec.sizes
@@ -178,6 +178,9 @@ class _Rank:
 
     def size(self, axis):
         return self.sizes.get(axis, 1)
+
+    data_size = tmesh.Mesh.data_size
+    data_index = tmesh.Mesh.data_index
 
 
 @pytest.mark.parametrize("sizes", [{"fsdp": 4}, {"fsdp": 2, "tp": 2},

@@ -372,36 +372,33 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
                                         x.dtype))
 
 
-def _block(h, layer, cos, sin, c: LlamaConfig, mesh=None, specs=None):
-    """One decoder layer: attention then MLP, each pre-normed and added to
-    the residual stream h [B, T, D]; returns (h, k, v).
-
-    With a ``mesh`` the layer's leaves are this rank's blocks, and each
-    weight is cast to the compute dtype and gathered over fsdp here, at its
-    use (under remat the backward's re-run gathers again).  Tensor
-    parallel: q, k, v, w_gate and w_up keep their tp columns (this rank's
-    contiguous heads and ffn columns), wo and w_down their tp rows, and the
-    products of wo and w_down are summed over tp."""
-    compute = c.compute_dtype
-    B, T = h.shape[:2]
-    tp = 1 if mesh is None else mesh.size("tp")
-    attn, mlp = layer["attn"], layer["mlp"]
-
-    def weight(group, name):
+def _weight(layer, compute, mesh, specs):
+    """``weight(group, name, keep=("tp",))``: the layer's ``[group][name]``
+    weight cast to the compute dtype and, with a ``mesh``, gathered over
+    every axis of its spec but those in ``keep`` (its contiguous tp
+    columns or rows, and an expert leaf's ep block, stay this rank's).
+    Under remat the backward's re-run gathers again."""
+    def weight(group, name, keep=("tp",)):
         w = layer[group][name]
         if mesh is None:
             return w.to(compute)
-        return gather(w, specs[name], mesh, compute, keep=("tp",))
+        return gather(w, specs[name], mesh, compute, keep=keep)
+    return weight
 
-    def norm(h, name):
-        x = _rmsnorm(h, layer[name], c.norm_eps)
-        return x if mesh is None else copy_to_tp(x, mesh)
 
-    def row_parallel(x, group, name):
-        y = x @ weight(group, name)
-        return y if mesh is None else reduce_from_tp(y, mesh)
-
-    x = norm(h, "attn_norm")
+def _attention(h, layer, cos, sin, c, mesh=None, specs=None):
+    """The pre-normed attention sub-layer of a decoder layer (Llama's and
+    the MoE family's): returns (h + attention(h), k, v).  With a ``mesh``,
+    q, k and v keep this rank's tp heads, the flash kernel runs on them
+    (JAX's ``flash_attention_sharded``: this rank's rows, its heads), and
+    wo's product is summed over tp."""
+    compute = c.compute_dtype
+    B, T = h.shape[:2]
+    tp = 1 if mesh is None else mesh.size("tp")
+    weight = _weight(layer, compute, mesh, specs)
+    x = _rmsnorm(h, layer["attn_norm"], c.norm_eps)
+    if mesh is not None:
+        x = copy_to_tp(x, mesh)
     q = (x @ weight("attn", "wq")).view(B, T, c.n_heads // tp, c.head_dim)
     k = (x @ weight("attn", "wk")).view(B, T, c.n_kv_heads // tp,
                                         c.head_dim)
@@ -410,12 +407,33 @@ def _block(h, layer, cos, sin, c: LlamaConfig, mesh=None, specs=None):
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
     o = flash_attention(q, k, v, causal=True, window=c.sliding_window)
-    h = h + row_parallel(o.reshape(B, T, c.dim // tp), "attn", "wo")
-    x = norm(h, "mlp_norm")
+    y = o.reshape(B, T, c.dim // tp) @ weight("attn", "wo")
+    if mesh is not None:
+        y = reduce_from_tp(y, mesh)
+    return h + y, k, v
+
+
+def _block(h, layer, cos, sin, c: LlamaConfig, mesh=None, specs=None):
+    """One decoder layer: attention then MLP, each pre-normed and added to
+    the residual stream h [B, T, D]; returns (h, k, v).
+
+    With a ``mesh`` the layer's leaves are this rank's blocks, and each
+    weight is cast to the compute dtype and gathered over fsdp here, at its
+    use (``_weight``).  Tensor parallel: q, k, v, w_gate and w_up keep
+    their tp columns (this rank's contiguous heads and ffn columns), wo
+    and w_down their tp rows, and the products of wo and w_down are summed
+    over tp."""
+    h, k, v = _attention(h, layer, cos, sin, c, mesh, specs)
+    weight = _weight(layer, c.compute_dtype, mesh, specs)
+    x = _rmsnorm(h, layer["mlp_norm"], c.norm_eps)
+    if mesh is not None:
+        x = copy_to_tp(x, mesh)
     gate = F.silu(x @ weight("mlp", "w_gate"))
     up = x @ weight("mlp", "w_up")
     with _unread_product():
-        down = row_parallel(gate * up, "mlp", "w_down")
+        down = (gate * up) @ weight("mlp", "w_down")
+        if mesh is not None:
+            down = reduce_from_tp(down, mesh)
     return h + down, k, v
 
 
@@ -429,20 +447,26 @@ def _whole(params, name, mesh, specs, dtype=None):
     return gather(x, specs[name], mesh, dtype)
 
 
-def mesh_specs(config: LlamaConfig, mesh) -> Dict[str, Any]:
-    """The fitted spec of each leaf on ``mesh`` by its name: top-level
-    leaves as they are stored, layer leaves as one layer's slice (the
-    stacked spec without its layer entry)."""
+def layer_specs(shapes, rules, mesh) -> Dict[str, Any]:
+    """The fitted spec of each leaf of a tree of global ``shapes`` on
+    ``mesh`` under ``rules``, by the leaf's name: top-level leaves as they
+    are stored, layer leaves as one layer's slice (the stacked spec
+    without its layer entry; a layer norm scale is replicated either
+    way)."""
     from trainingjob_operator_tpu_torch.parallel import sharding
 
-    rules = sharding_rules()
     specs = {}
-    for path, shape in sharding.tree_paths(param_shapes(config)):
+    for path, shape in sharding.tree_paths(shapes):
         spec = sharding.leaf_spec(path, shape, rules, mesh)
         name = path.rsplit("/", 1)[-1]
         specs[name] = spec[1:] if path.startswith("layers/") and \
             not name.endswith("norm") else spec
     return specs
+
+
+def mesh_specs(config: LlamaConfig, mesh) -> Dict[str, Any]:
+    """``layer_specs`` of the Llama tree under ``sharding_rules``."""
+    return layer_specs(param_shapes(config), sharding_rules(), mesh)
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor,

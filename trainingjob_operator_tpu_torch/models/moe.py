@@ -1,22 +1,29 @@
 """Mixtral-style sparse-MoE family for the PyTorch port: config,
 parameters, forward, loss.
 
-Port of the JAX package's ``models/moe.py`` on one card (the ``ep`` mesh
-axis and ``SHARDING_RULES`` are not ported yet: ROADMAP.md queue 1 item
-1).  The layers are Llama's (``models/llama.py``: RMSNorm, rope, the flash
-kernel, the remat policies) with the dense MLP replaced by a top-k routed
-mixture of experts in the GShard/Switch dense-dispatch formulation: one-hot
-dispatch and combine tensors of static shape [B, T, E, C], tokens over an
-expert's capacity C dropped (combine weight 0), and the Switch
-load-balancing auxiliary loss.  The parameter tree keeps the JAX layout,
-expert leaves stacked [L, E, in, out], so a JAX tree carries across leaf
-for leaf (``params_from_numpy``).
+Port of the JAX package's ``models/moe.py``, on one card or on a ``dp x
+fsdp x tp x ep`` mesh (``parallel/``).  The layers are Llama's
+(``models/llama.py``: RMSNorm, rope, the flash kernel, the remat policies)
+with the dense MLP replaced by a top-k routed mixture of experts in the
+GShard/Switch dense-dispatch formulation: one-hot dispatch and combine
+tensors of static shape [B, T, E, C], tokens over an expert's capacity C
+dropped (combine weight 0), and the Switch load-balancing auxiliary loss.
+The parameter tree keeps the JAX layout, expert leaves stacked [L, E, in,
+out], so a JAX tree carries across leaf for leaf (``params_from_numpy``).
 
 The dispatch, the expert products and the combine are ``torch.bmm`` calls:
 batched over b (dispatch, combine) or over e (experts), as the JAX
 einsums are.  Remat "dots" therefore recomputes them and saves only the
 products without batch dims (q, k, v, wo and the router), as JAX's
 ``dots_with_no_batch_dims_saveable`` does.
+
+On a mesh (JAX's ``SHARDING_RULES``, ``sharding_rules``) the experts lie
+on ``ep`` and, within an expert, on fsdp and tp.  The batch's rows lie on
+the data axes only (JAX's ``batch_spec``), so the ep and tp ranks of a
+data shard hold the same rows: each routes them to all E experts, runs
+its own experts' products on its tp columns, and the partial outputs are
+summed over tp and ep (``_moe_mlp``).  That is JAX's function exactly;
+no token moves between ranks, so there is no all-to-all.
 """
 
 from __future__ import annotations
@@ -29,7 +36,12 @@ import torch.nn.functional as F
 
 from trainingjob_operator_tpu_torch import resolve_device
 from trainingjob_operator_tpu_torch.models import llama
-from trainingjob_operator_tpu_torch.ops import flash_attention
+from trainingjob_operator_tpu_torch.parallel.collectives import (
+    copy_to_tp,
+    gather,
+    reduce_from_tp,
+    sum_over_data,
+)
 
 
 @dataclass(frozen=True)
@@ -79,6 +91,31 @@ class MoEConfig:
 CONFIGS = {"tiny": MoEConfig.tiny, "8x7b": MoEConfig.mixtral_8x7b}
 
 
+#: path-pattern -> spec (``parallel/sharding.py`` rules): the JAX
+#: package's ``SHARDING_RULES`` verbatim, in its order (the first match
+#: wins).  The expert dim rides ``ep``; within an expert the matmul dims
+#: keep the Megatron fsdp/tp layout; attention and embeddings as Llama's;
+#: the router is split over fsdp only.
+def sharding_rules():
+    return [
+        (r"tok_embed", (("tp", "fsdp"), None)),
+        (r"lm_head", ("fsdp", "tp")),
+        (r"attn/w[qkv]$", (None, "fsdp", "tp")),
+        (r"attn/wo$", (None, "tp", "fsdp")),
+        (r"moe/router$", (None, "fsdp", None)),
+        (r"moe/w_(gate|up)$", (None, "ep", "fsdp", "tp")),
+        (r"moe/w_down$", (None, "ep", "tp", "fsdp")),
+        (r"norm", (None,)),
+    ]
+
+
+#: Raises ``ValueError`` unless tp divides the query and KV heads and the
+#: ffn width, which the attention and the experts split by hand.  An ep
+#: that does not divide the experts is not refused: ``fit_spec`` then
+#: keeps every expert whole on every rank, as JAX does (``_expert_range``).
+check_tp = llama.check_tp
+
+
 def param_shapes(config: MoEConfig) -> Dict[str, Any]:
     """The global shape of every leaf of the parameter tree (the JAX
     ``init_params`` tree), in its order."""
@@ -101,7 +138,8 @@ def param_shapes(config: MoEConfig) -> Dict[str, Any]:
 
 
 def init_params(config: MoEConfig, generator: Optional[torch.Generator],
-                device="cuda", *, master: bool = False) -> Dict[str, Any]:
+                device="cuda", *, master: bool = False,
+                mesh=None) -> Dict[str, Any]:
     """Seeded random init on ``device``, same tree and scales as the JAX
     ``init_params`` (normal * in_dim ** -0.5, in_dim = ``shape[-2]``;
     embeddings and head * 0.02; norms 1); the numbers differ from JAX's
@@ -109,32 +147,59 @@ def init_params(config: MoEConfig, generator: Optional[torch.Generator],
     and per expert in a [L, E, in, out] leaf) is drawn on its own in f32 on
     the generator's device and stored in the leaf's dtype: the matmul
     weights in the compute dtype (all f32 with ``master=True``, for
-    training), the router and the norm scales in f32.  Without a
-    ``generator`` the leaves are allocated and not drawn: a template for a
-    checkpoint's restore."""
+    training), the router and the norm scales in f32.
+
+    With a ``mesh`` each leaf keeps only this rank's block under
+    ``sharding_rules``: every matrix is drawn whole, in the same order as
+    without a mesh (so the blocks of all ranks make up the same numbers),
+    and cut; a matrix of another rank's experts is drawn and dropped.
+
+    Without a ``generator`` the leaves are allocated and not drawn: a
+    template for a checkpoint's restore."""
+    import itertools
+
     from trainingjob_operator_tpu_torch.parallel import sharding
 
     dev = resolve_device(device)
     compute = config.compute_dtype
+    shapes = param_shapes(config)
+    blocks = None
+    if mesh is not None:
+        check_tp(config, mesh.size("tp"))
+        blocks = dict(sharding.tree_paths(
+            sharding.tree_blocks(shapes, sharding_rules(), mesh)))
     scales = {"tok_embed": 0.02, "lm_head": 0.02}
 
     def leaf(path, shape):
         name = path.rsplit("/", 1)[-1]
+        index = tuple((0, n) for n in shape)
+        if blocks is not None:
+            index = blocks[path][1]
+        local = tuple(b - a for a, b in index)
         if name.endswith("norm"):
-            return torch.ones(shape, dtype=torch.float32, device=dev)
-        out = torch.empty(shape, dtype=llama._leaf_dtype(name, compute,
+            return torch.ones(local, dtype=torch.float32, device=dev)
+        out = torch.empty(local, dtype=llama._leaf_dtype(name, compute,
                                                          master),
                           device=dev)
         if generator is None:
             return out
         scale = scales.get(name, shape[-2] ** -0.5)
-        for matrix in out.view(-1, *shape[-2:]):
-            matrix.copy_(torch.randn(shape[-2:], generator=generator,
-                                     device=generator.device,
-                                     dtype=torch.float32) * scale)
+        lead, cut = index[:-2], tuple(slice(a, b) for a, b in index[-2:])
+        for at in itertools.product(*(range(n) for n in shape[:-2])):
+            full = torch.randn(shape[-2:], generator=generator,
+                               device=generator.device, dtype=torch.float32)
+            if all(a <= i < b for i, (a, b) in zip(at, lead)):
+                mine = tuple(i - a for i, (a, _) in zip(at, lead))
+                out[mine].copy_(full[cut] * scale)
         return out
 
-    return sharding.map_with_path(leaf, param_shapes(config))
+    return sharding.map_with_path(leaf, shapes)
+
+
+def mesh_specs(config: MoEConfig, mesh) -> Dict[str, Any]:
+    """The fitted spec of each leaf on ``mesh`` by its name
+    (``llama.layer_specs`` of the MoE tree under ``sharding_rules``)."""
+    return llama.layer_specs(param_shapes(config), sharding_rules(), mesh)
 
 
 #: The JAX package's MoE parameter tree (numpy leaves) -> the port's:
@@ -150,7 +215,8 @@ def expert_capacity(config: MoEConfig, seq_len: int) -> int:
     return max(cap, 1)
 
 
-def _dispatch_combine(probs: torch.Tensor, k: int, capacity: int):
+def _dispatch_combine(probs: torch.Tensor, k: int, capacity: int,
+                      gates_fn=None):
     """GShard-style routing tensors from router probabilities [B, T, E]
     f32 -> (dispatch, combine), each [B, T, E, C] f32: ``combine`` carries
     the renormalised top-k gate of each (token, expert, slot) assignment,
@@ -163,11 +229,18 @@ def _dispatch_combine(probs: torch.Tensor, k: int, capacity: int):
     index first on ties; ``torch.topk`` promises no order), and a slot
     one-hot is a comparison with ``arange(C)``, which gives the zero row
     that ``jax.nn.one_hot`` gives a position >= C (``F.one_hot`` would
-    raise).  Positions are f32 cumsums, exact up to T = 2^24."""
+    raise).  Positions are f32 cumsums, exact up to T = 2^24.
+
+    ``gates_fn``, where given, maps the renormalised gates [B, T, k] before
+    they weigh ``combine``: the mesh path's ``copy_to_tp`` over the model
+    axes, whose backward sums the gates' gradient (read by each rank from
+    its own experts' partial outputs) before it reaches the router."""
     B, T, E = probs.shape
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = top.values[..., :k], top.indices[..., :k]
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    if gates_fn is not None:
+        gates = gates_fn(gates)
     experts = torch.arange(E, device=probs.device)
     slots = torch.arange(capacity, device=probs.device, dtype=probs.dtype)
     dispatch = probs.new_zeros((B, T, E, capacity))
@@ -188,22 +261,61 @@ def _dispatch_combine(probs: torch.Tensor, k: int, capacity: int):
     return dispatch, combine
 
 
+def _expert_range(config: MoEConfig, mesh, specs):
+    """(first, stop) of this rank's experts: its block of the expert dim
+    under the fitted spec, or all E where ``fit_spec`` dropped ep (E % ep
+    != 0: every rank holds every expert, as in JAX)."""
+    E = config.n_experts
+    if mesh is None or specs["w_gate"][0] is None:
+        return 0, E
+    n = E // mesh.size("ep")
+    return mesh.coord("ep") * n, (mesh.coord("ep") + 1) * n
+
+
+def _model_axes(specs):
+    """The axes the experts' partial outputs are summed over: tp, and ep
+    where the expert leaves are split on it."""
+    return ("tp",) if specs["w_gate"][0] is None else ("tp", "ep")
+
+
 def _moe_mlp(h: torch.Tensor, layer, config: MoEConfig,
-             compute: torch.dtype):
+             compute: torch.dtype, mesh=None, specs=None):
     """Routed expert MLP for h [B, T, D] -> ([B, T, D], aux loss f32).
 
     Routing is whole-sequence, as in JAX.  The router runs in f32 (routing
     decisions are precision-sensitive).  Dispatch [B, T, E*C]^T x h gives
     each expert's C rows of every sequence; the three expert products run
-    as one ``bmm`` over the E experts on [E, B*C, .] rows; the combine
-    weighs the expert outputs back into [B, T, D]."""
+    as one ``bmm`` over the experts on [E, B*C, .] rows; the combine
+    weighs the expert outputs back into [B, T, D].
+
+    With a ``mesh`` the router is gathered over fsdp and stays f32, and
+    every rank routes its rows to all E experts (the aux loss and the
+    router's gradient are whole on every rank).  The dispatch and combine
+    are cut to this rank's experts (``_expert_range``), whose leaves are
+    gathered over fsdp and keep their ep and tp blocks [E/ep, D, F/tp], so
+    the output is a partial sum over tp and ep (``_model_axes``):
+    ``reduce_from_tp`` sums it, and ``copy_to_tp`` sums the gradients
+    that come out partial, those of the experts' input and of the gates.
+    The router's input is not copied: its gradient is already whole."""
     c = config
     B, T, D = h.shape
-    E, C = c.n_experts, expert_capacity(c, T)
+    C = expert_capacity(c, T)
     moe = layer["moe"]
-    logits = h.float() @ moe["router"]                      # [B, T, E]
+    first, stop = _expert_range(c, mesh, specs)
+    weight = llama._weight(layer, compute, mesh, specs)
+    if mesh is None:
+        router, x, gates_fn = moe["router"], h, None
+    else:
+        axes = _model_axes(specs)
+        router = gather(moe["router"], specs["router"], mesh)
+        x = copy_to_tp(h, mesh, axes)
+
+        def gates_fn(gates):
+            return copy_to_tp(gates, mesh, axes)
+    logits = h.float() @ router                             # [B, T, E]
     probs = torch.softmax(logits, dim=-1)
-    dispatch, combine = _dispatch_combine(probs, c.experts_per_token, C)
+    dispatch, combine = _dispatch_combine(probs, c.experts_per_token, C,
+                                          gates_fn)
 
     # Switch-transformer load-balancing auxiliary loss: E * sum_e
     # (fraction of tokens routed to e) * (mean router prob of e).
@@ -211,39 +323,36 @@ def _moe_mlp(h: torch.Tensor, layer, config: MoEConfig,
         T * c.experts_per_token / c.n_experts, 1e-9) / c.n_experts
     aux = (frac * probs.mean(dim=1)).sum(-1).mean() * c.n_experts
 
-    x_e = torch.bmm(dispatch.to(compute).view(B, T, E * C).transpose(1, 2),
-                    h)                                      # [B, E*C, D]
+    E = stop - first
+    dispatch = dispatch[:, :, first:stop].to(compute).reshape(B, T, E * C)
+    combine = combine[:, :, first:stop].to(compute).reshape(B, T, E * C)
+    x_e = torch.bmm(dispatch.transpose(1, 2), x)            # [B, E*C, D]
     x_e = x_e.view(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
-    gate = F.silu(torch.bmm(x_e, moe["w_gate"].to(compute)))
-    up = torch.bmm(x_e, moe["w_up"].to(compute))
-    y_e = torch.bmm(gate * up, moe["w_down"].to(compute))   # [E, B*C, D]
+    keep = ("tp", "ep")
+    gate = F.silu(torch.bmm(x_e, weight("moe", "w_gate", keep)))
+    up = torch.bmm(x_e, weight("moe", "w_up", keep))
+    y_e = torch.bmm(gate * up, weight("moe", "w_down", keep))  # [E, B*C, D]
     y_e = y_e.view(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
-    y = torch.bmm(combine.to(compute).view(B, T, E * C), y_e)
+    y = torch.bmm(combine, y_e)
+    if mesh is not None:
+        y = reduce_from_tp(y, mesh, axes)
     return y, aux
 
 
-def _block(h, layer, cos, sin, c: MoEConfig):
+def _block(h, layer, cos, sin, c: MoEConfig, mesh=None, specs=None):
     """One decoder layer: attention then the routed MLP, each pre-normed
-    and added to the residual stream h [B, T, D]; returns (h, aux, k, v)."""
-    compute = c.compute_dtype
-    B, T = h.shape[:2]
-    attn = layer["attn"]
-    x = llama._rmsnorm(h, layer["attn_norm"], c.norm_eps)
-    q = (x @ attn["wq"].to(compute)).view(B, T, c.n_heads, c.head_dim)
-    k = (x @ attn["wk"].to(compute)).view(B, T, c.n_kv_heads, c.head_dim)
-    v = (x @ attn["wv"].to(compute)).view(B, T, c.n_kv_heads, c.head_dim)
-    q = llama._apply_rope(q, cos, sin)
-    k = llama._apply_rope(k, cos, sin)
-    o = flash_attention(q, k, v, causal=True, window=c.sliding_window)
-    h = h + o.reshape(B, T, c.dim) @ attn["wo"].to(compute)
+    and added to the residual stream h [B, T, D]; returns (h, aux, k, v).
+    With a ``mesh`` the leaves are this rank's blocks, gathered at their
+    use (``llama._attention``, ``_moe_mlp``)."""
+    h, k, v = llama._attention(h, layer, cos, sin, c, mesh, specs)
     y, aux = _moe_mlp(llama._rmsnorm(h, layer["moe_norm"], c.norm_eps),
-                      layer, c, compute)
+                      layer, c, c.compute_dtype, mesh, specs)
     return h + y, aux, k, v
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor,
             config: MoEConfig, *, remat=False, return_hidden: bool = False,
-            return_kv: bool = False):
+            return_kv: bool = False, mesh=None):
     """Logits [B, T, vocab] f32 and the mean auxiliary load-balancing loss
     over the layers.
 
@@ -252,30 +361,48 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     ``return_kv`` returns ``(logits, aux, (k, v))``, k/v the post-rope
     per-layer projections stacked [L, B, T, Hkv, Dh] (the decode prefill
     reuses this forward).  ``remat`` is one of ``llama.REMAT_POLICIES``.
-    """
+
+    With a ``mesh`` ``params`` holds this rank's blocks
+    (``init_params(mesh=...)``) and ``tokens`` its rows: each layer
+    gathers its weights inside its block, ``tok_embed`` and ``lm_head``
+    are gathered whole, and the flash kernel runs on this rank's heads;
+    ``return_kv`` raises, as Llama's."""
     if return_hidden and return_kv:
         raise ValueError("return_hidden and return_kv are mutually "
                          "exclusive (the hidden path drops the kv stack)")
     c = config
     compute = c.compute_dtype
     B, T = tokens.shape
-    h = params["tok_embed"].to(compute)[tokens]
+    specs = None
+    layers = params["layers"]
+    if mesh is not None:
+        if return_kv:
+            raise ValueError("return_kv is not supported with a mesh")
+        check_tp(c, mesh.size("tp"))
+        specs = mesh_specs(c, mesh)
+        # The norm scales are replicated: one gradient all-reduce over the
+        # data axes for each stacked leaf.
+        layers = {**layers, **{name: gather(layers[name], specs[name], mesh)
+                               for name in ("attn_norm", "moe_norm")}}
+    h = llama._whole(params, "tok_embed", mesh, specs, compute)[tokens]
     pos = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     cos, sin = llama._rope_tables(pos, c.head_dim, c.rope_theta, compute)
     block = llama._remat_wrap(_block, remat)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     ks, vs = [], []
-    for layer in llama.unstack_layers(params["layers"], c.n_layers):
-        h, layer_aux, k, v = block(h, layer, cos, sin, c)
+    for layer in llama.unstack_layers(layers, c.n_layers):
+        h, layer_aux, k, v = block(h, layer, cos, sin, c, mesh, specs)
         aux = aux + layer_aux
         if return_kv:
             ks.append(k)
             vs.append(v)
-    h = llama._rmsnorm(h, params["final_norm"], c.norm_eps)
+    h = llama._rmsnorm(h, llama._whole(params, "final_norm", mesh, specs),
+                       c.norm_eps)
     aux = aux / c.n_layers
     if return_hidden:
         return h, aux
-    logits = (h @ params["lm_head"].to(compute)).float()
+    logits = (h @ llama._whole(params, "lm_head", mesh, specs,
+                               compute)).float()
     if return_kv:
         return logits, aux, (torch.stack(ks), torch.stack(vs))
     return logits, aux
@@ -288,11 +415,10 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     weighted load-balancing auxiliary; batch: {"tokens": [B, T+1]}.
 
     ``ce_chunk`` > 0 (dividing T) computes the head and CE in sequence
-    chunks (``llama._chunked_ce``).  A ``mesh`` raises: MoE across
-    processes is not ported yet (ROADMAP.md queue 1 item 1)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "MoE on a mesh is not ported yet (ROADMAP.md queue 1 item 1)")
+    chunks (``llama._chunked_ce``).  With a ``mesh`` the batch is this
+    rank's rows and the loss is the global one, as ``llama.loss_fn``'s:
+    each rank's loss (a mean over its rows, the aux loss too) divided by
+    the data size and summed over the data axes."""
     c = config
     tokens = batch["tokens"]
     T = tokens.shape[1] - 1
@@ -301,14 +427,22 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         if T % ce_chunk != 0:
             raise ValueError(f"ce_chunk={ce_chunk} does not divide seq {T}")
         h, aux = forward(params, tokens[:, :-1], c, remat=remat,
-                         return_hidden=True)
-        ce = llama._chunked_ce(h, params["lm_head"], targets, ce_chunk,
+                         return_hidden=True, mesh=mesh)
+        lm_head = params["lm_head"]
+        if mesh is not None:
+            lm_head = llama._whole(params, "lm_head", mesh,
+                                   mesh_specs(c, mesh), c.compute_dtype)
+        ce = llama._chunked_ce(h, lm_head, targets, ce_chunk,
                                c.compute_dtype)
     else:
-        logits, aux = forward(params, tokens[:, :-1], c, remat=remat)
+        logits, aux = forward(params, tokens[:, :-1], c, remat=remat,
+                              mesh=mesh)
         ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                              targets.reshape(-1))
-    return ce + c.aux_loss_weight * aux
+    loss = ce + c.aux_loss_weight * aux
+    if mesh is None:
+        return loss
+    return sum_over_data(loss / mesh.data_size(), mesh)
 
 
 def num_params(config: MoEConfig) -> int:

@@ -13,6 +13,8 @@ hand, each as a ``torch.autograd.Function``:
 - ``copy_to_tp`` / ``reduce_from_tp`` -- Megatron's pair around a
   column- then row-parallel product: identity with an all-reduce of the
   gradient over tp, and an all-reduce over tp with an identity backward.
+  Both take a tuple of model axes too (the MoE experts' ``("tp", "ep")``:
+  one all-reduce per axis, which together sum over the sub-mesh).
 - ``sum_over_data`` -- a per-rank loss summed over the data axes (each
   rank's loss is its rows' mean divided by the data size, so the sum is
   the global mean), with an identity backward: every rank's graph gets the
@@ -26,7 +28,7 @@ Only ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -156,37 +158,54 @@ def gather(x: torch.Tensor, spec: Spec, mesh,
                          dtype)
 
 
+#: Model axes a copy_to_tp / reduce_from_tp pair sums over: one axis name
+#: or a tuple of them.
+Axes = Union[str, Tuple[str, ...]]
+
+
+def _sum_over(x: torch.Tensor, mesh, axes: Tuple[str, ...]) -> torch.Tensor:
+    """``x`` summed over each axis of ``axes`` in turn (a copy; the first
+    all-reduce makes it, the others reduce it in place)."""
+    for i, axis in enumerate(axes):
+        x = _all_reduce(x, mesh.group(axis), fresh=i > 0)
+    return x
+
+
 class _CopyToTp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad, ctx.mesh.group("tp")), None
+        return _sum_over(grad, ctx.mesh, ctx.axes), None, None
 
 
 class _ReduceFromTp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        return _all_reduce(x, mesh.group("tp"))
+    def forward(ctx, x, mesh, axes):
+        return _sum_over(x, mesh, axes)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
-def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+def _axes(axes: Axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def copy_to_tp(x: torch.Tensor, mesh, axes: Axes = "tp") -> torch.Tensor:
     """Megatron's f: the input of column-parallel products, whose gradient
-    is a partial sum on each tp rank."""
-    return _CopyToTp.apply(x, mesh)
+    is a partial sum on each rank of the model ``axes`` (default tp)."""
+    return _CopyToTp.apply(x, mesh, _axes(axes))
 
 
-def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+def reduce_from_tp(x: torch.Tensor, mesh, axes: Axes = "tp") -> torch.Tensor:
     """Megatron's g: the partial products of a row-parallel product summed
-    over tp."""
-    return _ReduceFromTp.apply(x, mesh)
+    over the model ``axes`` (default tp)."""
+    return _ReduceFromTp.apply(x, mesh, _axes(axes))
 
 
 class _SumOverData(torch.autograd.Function):

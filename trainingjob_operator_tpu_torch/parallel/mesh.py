@@ -11,8 +11,14 @@ world size.  The axes, in DCN-outermost order:
               parameter and its optimizer state; layers are gathered one at
               a time, gradients reduce-scattered.
 - ``tp``   -- tensor (Megatron) parallel: heads and ffn columns split.
-- ``pp``, ``sp``, ``ep`` -- pipeline, sequence and expert axes; the port's
-              model refuses them above 1.
+- ``ep``   -- expert parallel: the MoE family's experts split
+              (``models/moe.py``); each ep rank of a data shard runs its
+              experts on the shard's rows, and their outputs are summed.
+- ``pp``, ``sp`` -- pipeline and sequence axes; the port's models refuse
+              them above 1.
+
+``resized_mesh_spec`` has no ``ep``: JAX's MoE trainer has no resize in
+place.
 """
 
 from __future__ import annotations

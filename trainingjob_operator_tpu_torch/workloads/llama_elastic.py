@@ -112,29 +112,33 @@ def make_step_fn(params, cfg, *, accum: int, lr: float, remat="none",
     return step_fn
 
 
-def state_blocks(cfg, mesh) -> Dict[str, Any]:
+def state_blocks(cfg, mesh, model=None) -> Dict[str, Any]:
     """This process's blocks (``sharding.Block``) of the parameters and
-    the AdamW moments on ``mesh``, keyed as the checkpoint tree; ``{}``
-    (every leaf whole) without a mesh."""
+    the AdamW moments on ``mesh``, keyed as the checkpoint tree, under the
+    ``param_shapes`` and ``sharding_rules`` of the family's ``model``
+    module (default ``models.llama``; the MoE trainer passes
+    ``models.moe``); ``{}`` (every leaf whole) without a mesh."""
     if mesh is None:
         return {}
     from trainingjob_operator_tpu_torch.models import llama
     from trainingjob_operator_tpu_torch.parallel import sharding
 
-    blocks = sharding.tree_blocks(llama.param_shapes(cfg),
-                                  llama.sharding_rules(), mesh)
+    model = model or llama
+    blocks = sharding.tree_blocks(model.param_shapes(cfg),
+                                  model.sharding_rules(), mesh)
     return {"params": blocks, "opt_state": {"mu": blocks, "nu": blocks}}
 
 
-def shard_layout(rdv, cfg, mesh):
-    """The checkpoint ``ShardLayout`` of this process on ``mesh`` (None
-    without a mesh: the single-process format)."""
+def shard_layout(rdv, cfg, mesh, model=None):
+    """The checkpoint ``ShardLayout`` of this process on ``mesh``, laid
+    out by the family's ``model`` (``state_blocks``); None without a mesh:
+    the single-process format."""
     if mesh is None:
         return None
     from trainingjob_operator_tpu_torch.workloads import train
 
     return train.ShardLayout(rdv.process_id, rdv.num_processes,
-                             state_blocks(cfg, mesh))
+                             state_blocks(cfg, mesh, model))
 
 
 @dataclasses.dataclass

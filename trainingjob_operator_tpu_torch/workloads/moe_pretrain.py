@@ -1,4 +1,5 @@
-"""Mixtral-style MoE pretraining on one card: the port of the JAX package's
+"""Mixtral-style MoE pretraining on one card or across processes over a
+``dp x fsdp x tp x ep`` mesh: the port of the JAX package's
 ``workloads/moe_pretrain.py``.
 
 The loss (``models/moe.py`` ``loss_fn``: cross-entropy plus the weighted
@@ -14,8 +15,18 @@ drawn on the CPU (``torch.Generator`` seed 0), the same on every device,
 and are not drawn when a checkpoint restores; f32 masters, cast to the
 compute dtype at each use.
 
-One process only: expert and tensor parallelism (MOE_EP, MOE_TP > 1) and
-more than one process are refused at startup (ROADMAP.md queue 1 item 1).
+Across processes (``TRAININGJOB_COORDINATOR_ADDRESS``, ``_NUM_PROCESSES``,
+``_PROCESS_ID``; ``MEGASCALE_NUM_SLICES`` sets dp), as the Llama trainer:
+each process drives one card, the process group forms
+(``rendezvous.initialize_distributed``; with a coordinator address one
+process forms a group of one), the mesh is JAX's
+``mesh_from_rendezvous(..., model_parallel=MOE_TP, expert_parallel=
+MOE_EP)`` with its errors, each process keeps its blocks of the
+parameters and AdamW state under the MoE sharding rules (experts on
+``ep``), trains on its data shard's rows (``sharding.data_rows``: the ep
+and tp ranks of a shard take the same rows), and writes its shard of
+each checkpoint, which restores at any width.  Without a coordinator one
+process takes the single-card path and its checkpoint format.
 
 Run: ``python -m trainingjob_operator_tpu_torch.workloads.moe_pretrain
 [--device cuda|cpu]``.  Env, as the JAX module reads it: MOE_CONFIG=
@@ -24,7 +35,8 @@ MOE_LR, MOE_CKPT_EVERY, MOE_REMAT (none/full/attn/dots; default
 ``default_remat``), MOE_CE_CHUNK (chunked cross-entropy), MOE_WINDOW
 (sliding-window span), and the shared data and eval set (MOE_DATA,
 MOE_SEED, MOE_EVAL_EVERY / _BATCHES / _FRACTION: ``build_batch_sources``);
-the worker env of ``llama_elastic``'s single-process path.
+the worker env of ``llama_elastic`` but its resize channel (JAX's MoE
+trainer has no resize in place).
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from trainingjob_operator_tpu_torch.models import llama, moe
     from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
+    from trainingjob_operator_tpu_torch.parallel import sharding
     from trainingjob_operator_tpu_torch.workloads import (
         llama_elastic,
         rendezvous,
@@ -60,13 +73,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     env = os.environ
     tp = int(env.get("MOE_TP", "1"))
     ep = int(env.get("MOE_EP", "1"))
-    for what, n in (("MOE_TP", tp), ("MOE_EP", ep),
-                    ("processes", rdv.num_processes)):
-        if n > 1:
-            raise ValueError(
-                f"{what}={n}: MoE across processes (the ep axis, sharded "
-                f"expert leaves) is not ported yet (ROADMAP.md queue 1 "
-                f"item 1); the port trains MoE on one card")
     cfg = moe.CONFIGS.get(env.get("MOE_CONFIG", "tiny"), moe.MoEConfig.tiny)()
     steps = int(env.get("MOE_STEPS", "20"))
     global_batch = int(env.get("MOE_BATCH", "8"))
@@ -80,21 +86,34 @@ def main(argv: Optional[List[str]] = None) -> int:
     if window:
         cfg = dataclasses.replace(cfg, sliding_window=window)
 
+    # JAX's mesh arithmetic and errors, then the port's refusal of a tp
+    # its attention and experts cannot split, before any group forms.
     spec = pmesh.mesh_spec_from_rendezvous(rdv, model_parallel=tp,
                                            expert_parallel=ep)
+    moe.check_tp(cfg, tp)
+    mesh = None
+    if rdv.coordinator_address or rdv.num_processes > 1:
+        device = rendezvous.initialize_distributed(rdv, device)
+        mesh = pmesh.make_mesh(spec, device.type)
     print(f"elastic width {rdv.elastic_replicas}, mesh {spec.sizes}, "
           f"{moe.num_params(cfg) / 1e6:.1f}M params "
           f"({moe.active_params(cfg) / 1e6:.1f}M active), restart "
           f"{rdv.restart_count}", flush=True)
-    global_batch, _ = train.round_global_batch(global_batch, 1)
+    n_data = mesh.data_size() if mesh is not None else 1
+    global_batch, _ = train.round_global_batch(global_batch, n_data)
+    row0, local_batch = (sharding.data_rows(global_batch, mesh)
+                         if mesh is not None else (0, global_batch))
 
+    # Drawn on the CPU, so that the card and the CPU start from the same
+    # parameters at every width; a restart that restores draws nothing.
     generator = None
     if not train.CheckpointState.has_checkpoint(rdv, subdir="moe"):
         generator = torch.Generator().manual_seed(0)
-    params = moe.init_params(cfg, generator, device, master=True)
+    params = moe.init_params(cfg, generator, device, master=True, mesh=mesh)
     state = train.CheckpointState.restore_or_init(
         rdv, {"params": params, "opt_state": train.AdamW(params, lr).state,
-              "step": 0}, subdir="moe")
+              "step": 0}, subdir="moe",
+        layout=llama_elastic.shard_layout(rdv, cfg, mesh, moe))
     del params
     start_step = int(state.value["step"])
     params = state.value["params"]
@@ -109,28 +128,34 @@ def main(argv: Optional[List[str]] = None) -> int:
         train.build_batch_sources(
             prefix="MOE", vocab_size=cfg.vocab_size,
             global_batch=global_batch, seq=seq, synthetic_key=23,
-            device="cpu"))
+            device="cpu", local_batch=local_batch, row0=row0))
     eval_fn = None
     if eval_host_at is not None:
         # Same ce_chunk as training: eval must fit where training fits.
         eval_fn = train.mean_eval_fn(
             lambda tokens: moe.loss_fn(params, {"tokens": tokens}, cfg,
-                                       ce_chunk=ce_chunk),
+                                       ce_chunk=ce_chunk, mesh=mesh),
             lambda j: eval_host_at(j).to(device), eval_batches)
     step_fn = llama_elastic.make_step_fn(
         params, cfg, accum=1, lr=lr, remat=remat, ce_chunk=ce_chunk,
-        opt_state=opt_state, loss_fn=moe.loss_fn)
+        opt_state=opt_state, mesh=mesh, loss_fn=moe.loss_fn)
 
     # The 6 * params * tokens FLOPs estimate is an upper bound for an MoE
     # (only the top-k experts run for a token), as in JAX.
     tokens_per_step = global_batch * seq
-    loss, t_start = train.run_elastic_loop(
-        step_fn=step_fn, batch_at=batch_at, state=state, params=params,
-        opt_state=opt_state, steps=steps, start_step=start_step,
-        ckpt_every=ckpt_every, eval_fn=eval_fn, eval_every=eval_every,
-        units_per_step=tokens_per_step,
-        flops_per_step=6.0 * moe.num_params(cfg) * tokens_per_step,
-        device=device)
+    try:
+        loss, t_start = train.run_elastic_loop(
+            step_fn=step_fn, batch_at=batch_at, state=state, params=params,
+            opt_state=opt_state, steps=steps, start_step=start_step,
+            ckpt_every=ckpt_every, eval_fn=eval_fn, eval_every=eval_every,
+            units_per_step=tokens_per_step,
+            flops_per_step=6.0 * moe.num_params(cfg) * tokens_per_step,
+            device=device)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
     dt = max(time.time() - (t_start or time.time()), 1e-9)
     done = max(steps - start_step - 1, 1)
     print(f"done: steps={done} tokens/s={done * tokens_per_step / dt:.0f} "
