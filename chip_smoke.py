@@ -21,7 +21,9 @@ script exits non-zero):
    L2 limit; the backward must give bit-identical results on a second
    run.  RMSNorm is timed over a rotation of input copies twice the size
    of the card's L2, so that every call reads its input from device
-   memory.
+   memory.  Two cases are unmasked (``causal=False``, B1 T4096 H32 D128,
+   MHA and GQA 32/8): a ring block before the diagonal, timed against
+   SDPA with ``is_causal=False`` and bound with T^2 visible pairs.
 3. tiny_equivalence: the tiny config in fp32 through the kernels; every
    request of a DecodeService run must get exactly the tokens ``generate``
    gives for its prompt.
@@ -64,6 +66,23 @@ script exits non-zero):
    reduce-scatters and 11 all-reduces); its 8 losses equal phase 7's
    within SHARDED_LOSS_RTOL (bit for bit expected); step time, tokens/s,
    peak memory and their gap to phase 7.
+9a. ring_7b_width: ring attention at Llama-2-7B width (H 32, D 128,
+   bf16; MHA and GQA 32/8), B 1 and a 16,384-token sequence as sp = 4
+   virtual ranks of 4,096 tokens, played in turn in this process: each
+   rank's per-block forwards over the KV blocks the ring brings it
+   (``parallel/ringattention.py`` ``ring_blocks``; causal on the
+   diagonal, unmasked before it, later blocks skipped), the f32 merge,
+   and the per-block dQ and dK/dV with the merged LSE and delta.  Out,
+   LSE, dQ, dK and dV against the whole-sequence kernels at T = 16,384
+   within the flash tolerances; 10 forward, 10 dQ and 10 dK/dV launches
+   a case, all tensor-core; the ring's summed kernel time against the
+   whole-sequence kernels', and the merge's.
+9b. sp_7b_width: phase 9's step with ``sequence_parallel=True`` on the
+   sp = 1 mesh of an NCCL group of one: the ring's autograd Function and
+   operator, its shifts at size 1 and the remat policy's save; the 8
+   losses equal phase 9's within SHARDED_LOSS_RTOL (one causal block and
+   a merge of one: bit for bit expected), no ``p2p`` shift, launches as
+   ``train_launches`` says; step time and peak against phase 9's.
 10. resume_124m: the trainer's entry point (``python -m
    ...workloads.llama_elastic``) at the 124M config (dim 768, 8 layers,
    12 heads of 64, vocab 32000; seq 1024, batch 8), as its own processes
@@ -139,7 +158,7 @@ script exits non-zero):
 Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
-dK/dV, with their launches on the paths driven (the 7B phases 5-9 and 13,
+dK/dV, with their launches on the paths driven (the 7B phases 5-9b and 13,
 the 124M trainer of phases 10-11 and 14 and the Mixtral-width phases
 15-16a run the bf16 tensor-core kernels, the tiny fp32 phases 3-4a and 12
 and the tiny MoE trainer of phase 17 (head dim 16) the f32-FMA ones; a
@@ -410,6 +429,10 @@ FLASH_CASES = [
     # the generate prefill (generate_moe_width).
     (1, 4096, 32, 8, 128, True, 0, "bfloat16"),
     (1, 512, 32, 8, 128, True, 0, "bfloat16"),
+    # A ring block of Llama-2-7B attention (ring_7b_width): an earlier KV
+    # block runs the kernels unmasked, MHA and GQA 32/8.
+    (1, 4096, 32, 32, 128, False, 0, "bfloat16"),
+    (1, 4096, 32, 8, 128, False, 0, "bfloat16"),
 ]
 #: FLASH_CASES entry of the training path's attention shape.
 TRAIN_FLASH_CASE = 6
@@ -776,7 +799,8 @@ def mesh_collectives(L: int, micro_steps: int, weights: int = 7,
     router too), and 8 sums."""
     return {"all_gather": micro_steps * (weights * L + 4),
             "reduce_scatter": micro_steps * (weights * L + 2),
-            "all_reduce": micro_steps * ((weights + sums) * L + 10)}
+            "all_reduce": micro_steps * ((weights + sums) * L + 10),
+            "p2p": 0}
 
 
 def moe_mesh_collectives(L: int, micro_steps: int):
@@ -787,10 +811,12 @@ def moe_mesh_collectives(L: int, micro_steps: int):
     return mesh_collectives(L, micro_steps, weights=8, sums=8)
 
 
-def train_7b_width(torch, llama, llama_elastic, remat=None, mesh=None):
+def train_7b_width(torch, llama, llama_elastic, remat=None, mesh=None,
+                   sequence_parallel=False):
     """The trainer's step at Llama-2-7B widths, 8 layers (see the module
     docstring), under ``remat`` (default: the trainer's default at 8
-    layers, "none"), on ``mesh`` where given (its collectives counted)."""
+    layers, "none"), on ``mesh`` where given (its collectives counted),
+    with ring attention where ``sequence_parallel``."""
     from trainingjob_operator_tpu_torch import ops
     from trainingjob_operator_tpu_torch.parallel import collectives
     from trainingjob_operator_tpu_torch.workloads import train
@@ -806,7 +832,8 @@ def train_7b_width(torch, llama, llama_elastic, remat=None, mesh=None):
     for leaf in train.tree_leaves(params):
         leaf.requires_grad_(True)
     step_fn = llama_elastic.make_step_fn(params, cfg, accum=accum, lr=lr,
-                                         remat=remat, mesh=mesh)
+                                         remat=remat, mesh=mesh,
+                                         sequence_parallel=sequence_parallel)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -899,13 +926,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def on_group_of_one(torch, run, plain, what, **mesh_args):
+def on_group_of_one(torch, run, plain, what, vs="single_card", **mesh_args):
     """``run(mesh)`` through the multi-process path at world 1: the
     process group formed by ``rendezvous.initialize_distributed`` on NCCL,
     the mesh of ``mesh_spec_from_rendezvous(**mesh_args)``, every
     collective launched over the group of one.  Its losses against the
-    single-card run ``plain`` within SHARDED_LOSS_RTOL; the step time and
-    peak memory against it."""
+    run ``plain`` (named ``vs``: the single-card run by default) within
+    SHARDED_LOSS_RTOL; the step time and peak memory against it."""
     import torch.distributed as dist
 
     from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
@@ -927,14 +954,14 @@ def on_group_of_one(torch, run, plain, what, **mesh_args):
               for a, b in zip(out["losses"], plain["losses"]))
     if not rel <= SHARDED_LOSS_RTOL:
         raise AssertionError(f"{what} on a mesh: losses {out['losses']} "
-                             f"vs single-card {plain['losses']}")
+                             f"vs {vs} {plain['losses']}")
     return {**out, "backend": "nccl", "world": 1, "mesh": mesh.sizes,
             "group_s": group_s, "loss_rtol": SHARDED_LOSS_RTOL,
-            "loss_max_rel_err_vs_single_card": rel,
-            "losses_equal_single_card": out["losses"] == plain["losses"],
-            "step_s_ratio_vs_single_card":
+            f"loss_max_rel_err_vs_{vs}": rel,
+            f"losses_equal_{vs}": out["losses"] == plain["losses"],
+            f"step_s_ratio_vs_{vs}":
                 out["step_s_median"] / plain["step_s_median"],
-            "peak_mem_gib_minus_single_card":
+            f"peak_mem_gib_minus_{vs}":
                 out["peak_mem_gib"] - plain["peak_mem_gib"]}
 
 
@@ -945,6 +972,152 @@ def sharded_7b_width(torch, llama, llama_elastic, plain):
         torch, lambda mesh: train_7b_width(torch, llama, llama_elastic,
                                            mesh=mesh),
         plain, "7B-width train")
+
+
+def sp_7b_width(torch, llama, llama_elastic, sharded):
+    """``sharded_7b_width``'s step with ``sequence_parallel=True`` on the
+    sp = 1 mesh of a group of one: attention through the ring's autograd
+    Function and operator, its shifts at size 1 (none) and the remat
+    policy's save; losses against ``sharded``'s within SHARDED_LOSS_RTOL
+    (one causal block and a merge of one: bit for bit expected), no shift,
+    the launches of ``train_launches``."""
+    out = on_group_of_one(
+        torch, lambda mesh: train_7b_width(torch, llama, llama_elastic,
+                                           mesh=mesh, sequence_parallel=True),
+        sharded, "7B-width sp train", vs="sharded", sequence_parallel=1)
+    if out["collectives"]["p2p"] != 0 or out["mesh"].get("sp") != 1:
+        raise AssertionError(f"7B-width sp train: mesh {out['mesh']}, "
+                             f"collectives {out['collectives']}")
+    return out
+
+
+#: Ring attention at Llama-2-7B width: (Hq, Hkv) cases, the sequence, and
+#: the virtual ranks it is split over.
+RING_CASES = [(32, 32), (32, 8)]
+RING_T, RING_SP = 16384, 4
+
+
+def ring_7b_width(torch, flash):
+    """The 4-rank ring of a 16,384-token sequence (Llama-2-7B attention, H
+    32, D 128, bf16, B 1; MHA and GQA 32/8), its ranks played in turn in
+    this process: for each virtual rank the ring's per-block forward over
+    the KV blocks the ring brings it (``ringattention.ring_blocks``), the
+    merge, and the per-block backward with the merged lse and delta, dK
+    and dV summed at their block's rank.  Out, LSE, dQ, dK and dV against
+    the whole-sequence kernels at T = 16,384 under the flash tolerances
+    (FWD_TOL, LSE_ATOL, BWD_TOL; dQ with DQ_ATOL_FLOOR_RMS); launches 10
+    forward, 10 dQ and 10 dK/dV, all tensor-core; the ring's summed
+    kernel time against the whole-sequence kernels', and the merge's."""
+    from trainingjob_operator_tpu_torch import ops
+    from trainingjob_operator_tpu_torch.parallel import ringattention as ring
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    T, sp, D = RING_T, RING_SP, 128
+    tl = T // sp
+    scale = D ** -0.5
+    cases = []
+    for H, Hkv in RING_CASES:
+        q, k, v, do = (torch.randn(1, T, h, D, generator=gen, device=dev)
+                       .to(torch.bfloat16) for h in (H, Hkv, Hkv, H))
+        opts = dict(causal=True, scale=scale, window=0)
+        out, lse = flash.flash_kernel_with_lse(q, k, v, **opts)
+        delta = flash.flash_delta(do, out)
+        args = (q, k, v, do, lse, delta)
+        want = {"out": out, "lse": lse,
+                "dq": flash.flash_bwd_dq_kernel(*args, **opts)}
+        want["dk"], want["dv"] = flash.flash_bwd_dkv_kernel(*args, **opts)
+
+        def block(x, r):
+            return x[:, r * tl:(r + 1) * tl]
+        plan = [ring.ring_blocks(r, sp, causal=True) for r in range(sp)]
+
+        def forwards():
+            return [[ring.block_forward(block(q, r), block(k, src),
+                                        block(v, src), diagonal=diag,
+                                        scale=scale)
+                     for _, src, diag in plan[r]] for r in range(sp)]
+
+        def merges(parts):
+            return [ring.merge_blocks(p) for p in parts]
+
+        def backwards(merged):
+            grads = []
+            for r, (o, l) in enumerate(merged):
+                d = flash.flash_delta(block(do, r), o)
+                grads.append([(src, ring.block_backward(
+                    block(q, r), block(k, src), block(v, src),
+                    block(do, r), l, d, diagonal=diag, scale=scale))
+                    for _, src, diag in plan[r]])
+            return grads
+
+        ops.reset_launch_counts()
+        parts = forwards()
+        merged = merges(parts)
+        grads = backwards(merged)
+        counts = ops.launch_counts()
+        torch.cuda.synchronize()
+        pairs = sum(len(p) for p in plan)
+        want_counts = {"flash_attention_fwd": pairs,
+                       "flash_attention_fwd_wgmma": pairs,
+                       "flash_attention_bwd_dq": pairs,
+                       "flash_attention_bwd_dq_wgmma": pairs,
+                       "flash_attention_bwd_dkv": pairs,
+                       "flash_attention_bwd_dkv_wgmma": pairs}
+        if pairs != 10 or any(counts[key] != n
+                              for key, n in want_counts.items()):
+            raise AssertionError(f"ring {H}/{Hkv}: launches {counts}, "
+                                 f"expected {want_counts}")
+        dq = torch.cat([sum(g.float() for _, (g, _, _) in grads[r])
+                        for r in range(sp)], dim=1)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+        for r in range(sp):
+            for src, (_, bk, bv) in grads[r]:
+                block(dk, src).add_(bk)
+                block(dv, src).add_(bv)
+        got = {"out": torch.cat([o for o, _ in merged], dim=1),
+               "lse": torch.cat([l for _, l in merged], dim=2),
+               "dq": dq.to(q.dtype), "dk": dk.to(k.dtype),
+               "dv": dv.to(v.dtype)}
+        errs = {"out": fwd_check(torch, got["out"], want["out"],
+                                 "bfloat16_wgmma")}
+        for name, floor in (("dq", DQ_ATOL_FLOOR_RMS), ("dk", 0.0),
+                            ("dv", 0.0)):
+            errs[name] = grad_check(torch, got[name], want[name],
+                                    "bfloat16_wgmma", floor)
+        lse_err = float((got["lse"] - want["lse"]).abs().max())
+        tag = f"ring T={T} sp={sp} H={H}/{Hkv}"
+        for name, err in errs.items():
+            if not err["ok"]:
+                raise AssertionError(f"{tag}: {name} {err}")
+        if not lse_err <= LSE_ATOL["bfloat16"]:
+            raise AssertionError(f"{tag}: lse max abs err {lse_err}")
+        whole_fwd = time_ms(lambda: flash.flash_kernel_with_lse(
+            q, k, v, **opts), 3)
+        whole_dq = time_ms(lambda: flash.flash_bwd_dq_kernel(*args, **opts),
+                           3)
+        whole_dkv = time_ms(
+            lambda: flash.flash_bwd_dkv_kernel(*args, **opts), 3)
+        ring_fwd = time_ms(forwards, 2)
+        merge_ms = time_ms(lambda: merges(parts), 2)
+        ring_bwd = time_ms(lambda: backwards(merged), 2)
+        cases.append({
+            "T": T, "sp": sp, "block_T": tl, "Hq": H, "Hkv": Hkv, "D": D,
+            "dtype": "bfloat16", "visible_blocks": pairs,
+            "launches": counts, "errors": errs, "lse_max_abs_err": lse_err,
+            "whole_fwd_ms": whole_fwd, "whole_bwd_ms": whole_dq + whole_dkv,
+            "whole_dq_ms": whole_dq, "whole_dkv_ms": whole_dkv,
+            "ring_fwd_ms": ring_fwd, "ring_merge_ms": merge_ms,
+            "ring_bwd_ms": ring_bwd,
+            "ring_kernels_ms_over_whole":
+                (ring_fwd + ring_bwd) / (whole_fwd + whole_dq + whole_dkv)})
+        del q, k, v, do, out, lse, delta, args, want, parts, merged, grads
+        del got, dq, dk, dv
+        torch.cuda.empty_cache()
+    launches = {key: sum(c["launches"][key] for c in cases)
+                for key in cases[0]["launches"]}
+    return {"cases": cases, "launches": launches}
 
 
 def sharded_moe_width(torch, moe, llama_elastic, train, plain):
@@ -2467,6 +2640,14 @@ def main() -> int:
     emit({"phase": "sharded_7b_width", "device": name, "nvidia_smi": smi,
           **sharded})
     torch.cuda.empty_cache()
+    ringed = ring_7b_width(torch, flash)
+    emit({"phase": "ring_7b_width", "device": name, "nvidia_smi": smi,
+          **ringed})
+    torch.cuda.empty_cache()
+    sp_run = sp_7b_width(torch, llama, llama_elastic, sharded)
+    emit({"phase": "sp_7b_width", "device": name, "nvidia_smi": smi,
+          **sp_run})
+    torch.cuda.empty_cache()
 
     sink = LineSink()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2504,7 +2685,8 @@ def main() -> int:
     # paths and the 124M trainer run the bf16 tensor-core kernels, the tiny
     # fp32 ones the f32-FMA kernels.
     paths = [served, generated, trained, remat["attn"], remat["dots"],
-             sharded, resumed, tel, cross, resized, ladder, tiny,
+             sharded, ringed, sp_run, resumed, tel, cross, resized, ladder,
+             tiny,
              *tiny_train_runs(tiny_train), tiny_moe["serve"],
              *tiny_train_runs(tiny_moe["train"]), moe_served, moe_generated,
              moe_trained, moe_sharded, moe_resumed]

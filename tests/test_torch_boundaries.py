@@ -77,6 +77,15 @@ def test_the_parallel_modules_are_scanned():
         _port_modules()
 
 
+def test_the_sequence_and_pipeline_modules_are_scanned():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_files()
+               if PKG in p.parents}
+    assert {"parallel/ringattention.py", "parallel/pipeline.py"} <= scanned
+    assert {"trainingjob_operator_tpu_torch.parallel.ringattention",
+            "trainingjob_operator_tpu_torch.parallel.pipeline"} <= set(
+                _port_modules())
+
+
 def test_the_moe_modules_are_scanned():
     scanned = {p.relative_to(PKG).as_posix() for p in _port_files()
                if PKG in p.parents}

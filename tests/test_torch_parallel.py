@@ -16,6 +16,15 @@ mesh) against the JAX package and against the port on one process.
   gradient entries and the parameters after AdamW are held to ``LOOSE``
   times those limits (see there).
 - A tp that does not divide the heads is refused.
+- Sequence and pipeline parallelism (``tests/_torch_sp_pp_rank.py
+  llama``), the tiny config with 4 layers in fp32: two gloo processes on
+  sp=2 and pp=2 and four on tp=2 x sp=2, pp=2 x fsdp=2 and pp=2 x sp=2,
+  under remat "none" and "attn": the loss on every rank and every
+  gradient equal one process's within 1e-5 and JAX's ``loss_fn`` with
+  ``mesh=`` (``sequence_parallel`` where sp > 1) within ``F32_TOL``; each
+  rank shifts what the ring and the schedule say (``_shifts``), the same
+  under both policies; the pipeline's microbatches are JAX's but on
+  pp=2 x fsdp=2, where JAX's 4 does not divide a rank's 2 rows.
 """
 
 import dataclasses
@@ -377,3 +386,187 @@ def test_three_adamw_steps_equal_one_process(ranks, one_process, kind,
     got = _gathered(ranks, kind, f"{kind}/{remat}/adamw/param", _shapes())
     for path, want in params.items():
         _assert_close(got[path], want, LOOSE * SELF_TOL, path)
+
+
+#: The sp and pp meshes of tests/_torch_sp_pp_rank.py: world -> mesh ->
+#: (tp, sp, pp), on the tiny config with SP_PP_LAYERS layers.
+SP_PP = {2: {"sp2": (1, 2, 1), "pp2": (1, 1, 2)},
+         4: {"tp2_sp2": (2, 2, 1), "pp2_fsdp2": (1, 1, 2),
+             "pp2_sp2": (1, 2, 2)}}
+SP_PP_MESHES = {name: (world, axes) for world, meshes in SP_PP.items()
+                for name, axes in meshes.items()}
+SP_PP_LAYERS = 4
+SP_PP_RANK = ROOT / "tests" / "_torch_sp_pp_rank.py"
+#: The relative L2 error a gradient may have on an sp mesh against one
+#: process (elementwise it is held to SELF_TOL as everywhere).  The ring
+#: sums each softmax row over blocks, in another order than one process,
+#: and the 4-layer backward amplifies that rounding: JAX's own gradients
+#: on its sp=2 mesh lie 1.8e-5 (wk, relative L2) from its gradients
+#: without a mesh.  The port's largest: 1.4e-5 at sp=2 and pp=2 x sp=2,
+#: 2.6e-5 at tp=2 x sp=2 (wv).
+RING_L2 = 4e-5
+
+
+def _sp_pp_configs():
+    jc = dataclasses.replace(jllama.LlamaConfig.tiny(n_layers=SP_PP_LAYERS),
+                             dtype="float32")
+    return jc, tllama.LlamaConfig(**jc.__dict__)
+
+
+@pytest.fixture(scope="module")
+def sp_pp_inputs():
+    """PRNGKey(0), as ``inputs``.  (At PRNGKey(1) the 4-layer gradients are
+    ill-conditioned in f32: JAX's own f32 gradient of wk lies 2.2e-4
+    (relative L2) from its f64 gradient there, and the one-process port's
+    5.1e-4; at PRNGKey(0) 2.3e-5 and 3.8e-5.)"""
+    jc, _ = _sp_pp_configs()
+    tree = jax.tree_util.tree_map(
+        np.asarray, jllama.init_params(jc, jax.random.PRNGKey(0)))
+    tokens = np.random.default_rng(9).integers(0, 256, (B, T + 1)).astype(
+        np.int32)
+    return tree, tokens
+
+
+@pytest.fixture(scope="module")
+def sp_pp_ranks(sp_pp_inputs, tmp_path_factory):
+    """Each world's ranks' outputs of ``_torch_sp_pp_rank.py llama``: the
+    two- and four-process groups run side by side."""
+    tree, tokens = sp_pp_inputs
+    work = tmp_path_factory.mktemp("sp_pp")
+    src = work / "inputs.npz"
+    np.savez(src, **{f"p/{k}": v for k, v in _flat_numpy(tree).items()},
+             tokens=tokens)
+    procs = {}
+    try:
+        for world in SP_PP:
+            env = {**os.environ, "OMP_NUM_THREADS": "1",
+                   "PYTHONPATH": str(ROOT),
+                   "TRAININGJOB_COORDINATOR_ADDRESS":
+                       f"127.0.0.1:{_free_port()}",
+                   "TRAININGJOB_NUM_PROCESSES": str(world)}
+            procs[world] = [subprocess.Popen(
+                [sys.executable, str(SP_PP_RANK), str(src),
+                 str(work / f"w{world}_rank{rank}.npz"), "llama"],
+                env={**env, "TRAININGJOB_PROCESS_ID": str(rank)}, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for rank in range(world)]
+        outs = {world: [p.communicate(timeout=60)[0] for p in ps]
+                for world, ps in procs.items()}
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    assert all(p.returncode == 0 for ps in procs.values() for p in ps), outs
+    return {world: [dict(np.load(work / f"w{world}_rank{r}.npz"))
+                    for r in range(world)] for world in SP_PP}
+
+
+@pytest.fixture(scope="module")
+def sp_pp_one_process(sp_pp_inputs):
+    tree, tokens = sp_pp_inputs
+    _, tc = _sp_pp_configs()
+    params = ttrain.trainable_copy(
+        tllama.params_from_numpy(tree, tc, "cpu", master=True), "cpu")
+    loss = tllama.loss_fn(params, {"tokens": torch.from_numpy(tokens).long()},
+                          tc)
+    loss.backward()
+    return float(loss.detach()), {p: x.grad.numpy() for p, x in
+                                  tsharding.tree_paths(params)}
+
+
+def _sp_pp_shapes():
+    _, tc = _sp_pp_configs()
+    return dict(tsharding.tree_paths(tllama.param_shapes(tc)))
+
+
+def _shifts(mesh, microbatches):
+    """One rank's shifts of a loss and its backward: each of its layers
+    rings once a microbatch, 2 (sp - 1) forward and 2 (sp - 1) + 2 sp
+    backward (``parallel/ringattention.py``); the schedule hands off
+    M + S - 2 times each way (``parallel/pipeline.py``)."""
+    _, (tp, sp, pp) = SP_PP_MESHES[mesh]
+    ring = (SP_PP_LAYERS // pp) * microbatches * (
+        6 * sp - 4) if sp > 1 else 0
+    return ring + (2 * (microbatches + pp - 2) if pp > 1 else 0)
+
+
+@pytest.mark.parametrize("remat", REMATS)
+@pytest.mark.parametrize("mesh", sorted(SP_PP_MESHES))
+def test_sp_pp_ranks_equal_one_process(sp_pp_ranks, sp_pp_one_process, mesh,
+                                       remat):
+    world, _ = SP_PP_MESHES[mesh]
+    ranks = sp_pp_ranks[world]
+    loss, grads = sp_pp_one_process
+    for res in ranks:
+        np.testing.assert_allclose(float(res[f"{mesh}/{remat}/loss"]), loss,
+                                   rtol=SELF_TOL, atol=SELF_TOL)
+    got = _gathered(ranks, mesh, f"{mesh}/{remat}/grad", _sp_pp_shapes())
+    assert set(got) == set(grads)
+    l2 = RING_L2 if SP_PP_MESHES[mesh][1][1] > 1 else SELF_TOL
+    for path, want in grads.items():
+        _assert_close(got[path], want, l2, path,
+                      LOOSE * SELF_TOL if path == "tok_embed" else SELF_TOL)
+
+
+def _jax_sp_pp(tree, tokens, mesh):
+    jc, _ = _sp_pp_configs()
+    world, (tp, sp, pp) = SP_PP_MESHES[mesh]
+    jm = jmesh.make_mesh(jmesh.MeshSpec.of(pp=pp, fsdp=world // (tp * sp * pp),
+                                           tp=tp, sp=sp),
+                         devices=jax.devices()[:world])
+    params = jsharding.shard_pytree(
+        jax.tree_util.tree_map(jnp.asarray, tree),
+        jllama.sharding_rules(pipeline=pp > 1), jm)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, t: jllama.loss_fn(p, {"tokens": t}, jc, mesh=jm,
+                                    sequence_parallel=sp > 1)))(
+        params, jnp.asarray(tokens))
+    return float(loss), _flat_numpy(grads)
+
+
+@pytest.fixture(scope="module")
+def sp_pp_jax(sp_pp_inputs):
+    """JAX's loss and gradients on each mesh (remat changes neither)."""
+    tree, tokens = sp_pp_inputs
+    return {mesh: _jax_sp_pp(tree, tokens, mesh) for mesh in SP_PP_MESHES}
+
+
+@pytest.mark.parametrize("remat", REMATS)
+@pytest.mark.parametrize("mesh", sorted(SP_PP_MESHES))
+def test_sp_pp_ranks_equal_jax_on_its_mesh(sp_pp_ranks, sp_pp_jax, mesh,
+                                           remat):
+    world, _ = SP_PP_MESHES[mesh]
+    ranks = sp_pp_ranks[world]
+    lj, gj = sp_pp_jax[mesh]
+    for res in ranks:
+        np.testing.assert_allclose(float(res[f"{mesh}/{remat}/loss"]), lj,
+                                   rtol=F32_TOL)
+    got = _gathered(ranks, mesh, f"{mesh}/{remat}/grad", _sp_pp_shapes())
+    assert set(got) == set(gj)
+    for path, want in gj.items():
+        _assert_close(got[path], want, F32_TOL, path,
+                      LOOSE * F32_TOL if path == "tok_embed" else None)
+
+
+@pytest.mark.parametrize("mesh", sorted(SP_PP_MESHES))
+def test_sp_pp_shifts_and_microbatches(sp_pp_ranks, mesh):
+    world, (_, _, pp) = SP_PP_MESHES[mesh]
+    for res in sp_pp_ranks[world]:
+        m, m_jax = (int(x) for x in res[f"{mesh}/microbatches"])
+        # The rows of a data shard: B over dp x fsdp.
+        rows = B // (world // int(np.prod(SP_PP_MESHES[mesh][1])))
+        if pp > 1:
+            n_data = world // int(np.prod(SP_PP_MESHES[mesh][1]))
+            assert m_jax == jllama.choose_microbatches(
+                B, 8 * (pp - 1), n_data, pp, False)
+            assert m == (m_jax if rows % m_jax == 0 else rows)
+        # "attn" saves the ring's (out, lse): its backward shifts no more
+        # than "none"'s.
+        for remat in REMATS:
+            assert int(res[f"{mesh}/{remat}/p2p"]) == _shifts(mesh, m), \
+                (remat, res[f"{mesh}/{remat}/p2p"])
+    assert [int(r[f"{mesh}/microbatches"][0]) != int(
+        r[f"{mesh}/microbatches"][1]) for r in sp_pp_ranks[world]] == \
+        [mesh == "pp2_fsdp2"] * world

@@ -477,7 +477,10 @@ class TestEntryPoint:
         ({"LLAMA_TP": "2"}, ValueError,
          r"1 devices not divisible by tp\*sp\*ep\*pp=2"),
         ({"LLAMA_TP": "3"}, ValueError, "tp=3 does not divide n_heads=4"),
-        ({"LLAMA_PP": "4"}, NotImplementedError, "queue 1 item 2"),
+        # pp and sp are ported too: a pp that does not divide the layers
+        # is refused (JAX's gpipe message), and one process cannot hold
+        # sp=2.
+        ({"LLAMA_PP": "4"}, ValueError, "2 layers not divisible by pp=4"),
         # A width above one card is taken now; a job of several processes
         # without a coordinator to meet at is not.
         ({"TRAININGJOB_CHECKPOINT_DIR": "/x",
@@ -485,8 +488,8 @@ class TestEntryPoint:
          "TRAININGJOB_COORDINATOR_ADDRESS is not set"),
         ({"LLAMA_REMAT": "attn_out"}, ValueError, "unknown remat policy"),
         ({"LLAMA_DTYPE": "float16"}, ValueError, "expected bfloat16 or"),
-        ({"LLAMA_CONFIG": "7b", "LLAMA_SP": "2"}, NotImplementedError,
-         "queue 1 item 2")])
+        ({"LLAMA_CONFIG": "7b", "LLAMA_SP": "2"}, ValueError,
+         r"1 devices not divisible by tp\*sp\*ep\*pp=2")])
     def test_refuses_what_is_not_ported(self, monkeypatch, env, err, match):
         def must_not_run(*a, **k):
             raise AssertionError("main built a model it must refuse")

@@ -1,8 +1,10 @@
 """Llama-2 family for the PyTorch port: config, parameters, forward, loss.
 
 Port of the JAX package's ``models/llama.py``: every remat policy, and a
-``dp x fsdp x tp`` mesh (``parallel/``; no pipeline or sequence
-parallelism).  The parameter
+``dp x pp x fsdp x tp x sp`` mesh (``parallel/``): under sp attention is
+ring attention over the sequence blocks (``parallel/ringattention.py``),
+under pp the layer stack is a GPipe pipeline over the stages
+(``parallel/pipeline.py``).  The parameter
 tree keeps the JAX layout -- a nested dict with stacked ``[L, in, out]``
 layer leaves and ``x @ W`` products, under the same key paths as the JAX
 ``init_params`` -- so a JAX parameter tree carries across leaf for leaf
@@ -15,6 +17,7 @@ import contextlib
 import contextvars
 import importlib
 import math
+import os
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Dict, List, Optional
@@ -37,6 +40,12 @@ from trainingjob_operator_tpu_torch.parallel.collectives import (
     reduce_from_tp,
     sum_over_data,
 )
+from trainingjob_operator_tpu_torch.parallel.pipeline import gpipe, touch
+from trainingjob_operator_tpu_torch.parallel.ringattention import (
+    RING_OP,
+    ring_attention,
+)
+from trainingjob_operator_tpu_torch.parallel.sharding import sequence_block
 
 _flash = importlib.import_module(
     "trainingjob_operator_tpu_torch.ops.flash_attention")
@@ -107,7 +116,7 @@ def _leaf_dtype(name: str, compute: torch.dtype,
 #: path-pattern -> spec (``parallel/sharding.py`` rules): the JAX
 #: package's ``sharding_rules`` verbatim.  fsdp splits the large dim, tp
 #: heads, ffn and vocab; stacked layer leaves carry a leading layer entry
-#: (``pp`` under a pipeline, which the port refuses).
+#: (``pp`` under a pipeline: each stage holds its contiguous layers).
 def sharding_rules(pipeline: bool = False):
     lead = "pp" if pipeline else None
     return [
@@ -120,6 +129,20 @@ def sharding_rules(pipeline: bool = False):
         (r"layers/.*norm", (lead, None)),
         (r"norm", (None,)),
     ]
+
+
+def mesh_rules(mesh):
+    """The rules on ``mesh``: ``sharding_rules(pipeline=pp > 1)``, as the
+    JAX trainer picks them."""
+    return sharding_rules(pipeline=mesh is not None and mesh.size("pp") > 1)
+
+
+def check_pp(config: LlamaConfig, pp: int) -> None:
+    """Raise JAX's ``ValueError`` (``pipeline.py:131-132``) unless ``pp``
+    divides the layers: each stage holds an equal contiguous block."""
+    if config.n_layers % pp != 0:
+        raise ValueError(f"{config.n_layers} layers not divisible by "
+                         f"pp={pp}")
 
 
 def check_tp(config: LlamaConfig, tp: int) -> None:
@@ -185,8 +208,9 @@ def init_params(config: LlamaConfig, generator: Optional[torch.Generator],
     blocks = None
     if mesh is not None:
         check_tp(config, mesh.size("tp"))
+        check_pp(config, mesh.size("pp"))
         blocks = dict(sharding.tree_paths(
-            sharding.tree_blocks(shapes, sharding_rules(), mesh)))
+            sharding.tree_blocks(shapes, mesh_rules(mesh), mesh)))
     scales = {"tok_embed": 0.02, "lm_head": 0.02}
 
     def leaf(path, shape):
@@ -202,14 +226,18 @@ def init_params(config: LlamaConfig, generator: Optional[torch.Generator],
                           device=dev)
         if generator is None:
             return out
-        # A stacked leaf is drawn a layer at a time; its layer dim is never
-        # split.
-        rows, row_cut = (out, cut[1:]) if len(shape) == 3 else \
-            (out[None], cut)
-        for row in rows:
+        # A stacked leaf is drawn a layer at a time, every layer (a stage
+        # keeps the draws of its own: pp splits the layer dim).
+        if len(shape) == 3:
+            rows = dict(enumerate(out, start=cut[0].start or 0))
+            n_rows, row_cut = shape[0], cut[1:]
+        else:
+            rows, n_rows, row_cut = {0: out}, 1, cut
+        for i in range(n_rows):
             full = torch.randn(shape[-2:], generator=generator,
                                device=generator.device, dtype=torch.float32)
-            row.copy_(full[row_cut] * scale)
+            if i in rows:
+                rows[i].copy_(full[row_cut] * scale)
         return out
 
     return sharding.map_with_path(leaf, shapes)
@@ -282,10 +310,12 @@ def remat_policy(remat) -> str:
 
 def _save_attn(ctx, func, *args, **kwargs):
     """JAX ``save_only_these_names("attn_out")``: the flash forward's
-    operator, whose outputs (out, lse) are the residuals its backward
-    reads, is saved; everything else is recomputed (q, k and v too, as in
-    JAX, where they are unnamed residuals of the custom VJP)."""
-    if func is _flash.FWD_OP:
+    operator and the ring's (``tj_torch::ring_fwd``), whose outputs (out,
+    lse) are the residuals their backward reads, are saved; everything
+    else is recomputed (q, k and v too, as in JAX, where they are unnamed
+    residuals of the custom VJP).  A saved ring runs none of its shifts
+    again."""
+    if func is _flash.FWD_OP or func is RING_OP:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -373,12 +403,14 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _weight(layer, compute, mesh, specs):
-    """``weight(group, name, keep=("tp",))``: the layer's ``[group][name]``
-    weight cast to the compute dtype and, with a ``mesh``, gathered over
-    every axis of its spec but those in ``keep`` (its contiguous tp
-    columns or rows, and an expert leaf's ep block, stay this rank's).
+    """``weight(group, name, keep=("tp", "pp"))``: the layer's
+    ``[group][name]`` weight cast to the compute dtype and, with a
+    ``mesh``, gathered over every axis of its spec but those in ``keep``
+    (its contiguous tp columns or rows, and an expert leaf's ep block,
+    stay this rank's; a stage's layers are split on pp, so their
+    gradients are not summed over it).
     Under remat the backward's re-run gathers again."""
-    def weight(group, name, keep=("tp",)):
+    def weight(group, name, keep=("tp", "pp")):
         w = layer[group][name]
         if mesh is None:
             return w.to(compute)
@@ -386,12 +418,14 @@ def _weight(layer, compute, mesh, specs):
     return weight
 
 
-def _attention(h, layer, cos, sin, c, mesh=None, specs=None):
+def _attention(h, layer, cos, sin, c, mesh=None, specs=None, ring=False):
     """The pre-normed attention sub-layer of a decoder layer (Llama's and
     the MoE family's): returns (h + attention(h), k, v).  With a ``mesh``,
     q, k and v keep this rank's tp heads, the flash kernel runs on them
     (JAX's ``flash_attention_sharded``: this rank's rows, its heads), and
-    wo's product is summed over tp."""
+    wo's product is summed over tp.  With ``ring`` (sequence parallel)
+    h is this rank's sequence block, and attention is ring attention over
+    sp (JAX's ``ring_attention_sharded``)."""
     compute = c.compute_dtype
     B, T = h.shape[:2]
     tp = 1 if mesh is None else mesh.size("tp")
@@ -406,14 +440,18 @@ def _attention(h, layer, cos, sin, c, mesh=None, specs=None):
                                         c.head_dim)
     q = _apply_rope(q, cos, sin)
     k = _apply_rope(k, cos, sin)
-    o = flash_attention(q, k, v, causal=True, window=c.sliding_window)
+    if ring:
+        o = ring_attention(q, k, v, mesh, causal=True)
+    else:
+        o = flash_attention(q, k, v, causal=True, window=c.sliding_window)
     y = o.reshape(B, T, c.dim // tp) @ weight("attn", "wo")
     if mesh is not None:
         y = reduce_from_tp(y, mesh)
     return h + y, k, v
 
 
-def _block(h, layer, cos, sin, c: LlamaConfig, mesh=None, specs=None):
+def _block(h, layer, cos, sin, c: LlamaConfig, mesh=None, specs=None,
+           ring=False):
     """One decoder layer: attention then MLP, each pre-normed and added to
     the residual stream h [B, T, D]; returns (h, k, v).
 
@@ -422,8 +460,8 @@ def _block(h, layer, cos, sin, c: LlamaConfig, mesh=None, specs=None):
     use (``_weight``).  Tensor parallel: q, k, v, w_gate and w_up keep
     their tp columns (this rank's contiguous heads and ffn columns), wo
     and w_down their tp rows, and the products of wo and w_down are summed
-    over tp."""
-    h, k, v = _attention(h, layer, cos, sin, c, mesh, specs)
+    over tp.  ``ring``: ring attention over sp (``_attention``)."""
+    h, k, v = _attention(h, layer, cos, sin, c, mesh, specs, ring)
     weight = _weight(layer, c.compute_dtype, mesh, specs)
     x = _rmsnorm(h, layer["mlp_norm"], c.norm_eps)
     if mesh is not None:
@@ -465,13 +503,76 @@ def layer_specs(shapes, rules, mesh) -> Dict[str, Any]:
 
 
 def mesh_specs(config: LlamaConfig, mesh) -> Dict[str, Any]:
-    """``layer_specs`` of the Llama tree under ``sharding_rules``."""
-    return layer_specs(param_shapes(config), sharding_rules(), mesh)
+    """``layer_specs`` of the Llama tree under ``mesh_rules``."""
+    return layer_specs(param_shapes(config), mesh_rules(mesh), mesh)
+
+
+def choose_microbatches(batch: int, target: int, n_data: int,
+                        n_stages: int, explicit: bool) -> int:
+    """Pick the GPipe microbatch count M (JAX's ``choose_microbatches``).
+
+    M must divide ``batch``.  With an EXPLICIT request (``n_microbatches``
+    arg or LLAMA_PP_MICROBATCH) the largest divisor <= the request wins,
+    period -- the user's bubble/memory trade is not second-guessed.  For
+    the default, prefer an M whose microbatch tiles the data axes
+    (``(batch/M) % n_data == 0`` -- the condition for the Pallas kernel on
+    the pp path, flash_attention_pp) but only when the relative schedule
+    cost (M+S-1)/M stays within 15%: a kernel's step win pays for a
+    modestly deeper bubble but never for a collapsed pipeline (e.g. M 8 ->
+    1 is a 75% bubble at pp=4).
+    """
+    divs = [d for d in range(1, min(target, batch) + 1) if batch % d == 0]
+    m0 = max(divs)
+    if explicit:
+        return m0
+    flashable = [d for d in divs if (batch // d) % n_data == 0]
+    if flashable:
+        f = max(flashable)
+        s = n_stages
+        if (f + s - 1) / f <= 1.15 * (m0 + s - 1) / m0:
+            return f
+    return m0
+
+
+def pipeline_microbatches(local_batch: int, mesh,
+                          n_microbatches: Optional[int] = None):
+    """(M, M_jax): the pipeline's microbatches of ``local_batch`` rows on
+    ``mesh``, and JAX's for the global batch of ``local_batch`` x the data
+    size.  The request is ``n_microbatches``, else LLAMA_PP_MICROBATCH,
+    else JAX's default 8 (S - 1) (bubble about 11%), and
+    ``choose_microbatches`` picks M_jax as JAX does.  The port's
+    microbatches split each rank's own rows, so where M_jax does not
+    divide them the port takes the largest M below it that does (JAX's
+    ``flash_attention_pp`` condition fails there, and JAX splits the
+    global batch instead)."""
+    S = mesh.size("pp")
+    explicit = n_microbatches is not None
+    if n_microbatches is None:
+        env_m = int(os.environ.get("LLAMA_PP_MICROBATCH", "0") or 0)
+        explicit = env_m > 0
+        n_microbatches = env_m or 8 * (S - 1)
+    n_data = mesh.data_size()
+    m_jax = choose_microbatches(local_batch * n_data, n_microbatches,
+                                n_data, S, explicit)
+    m = max(d for d in range(1, m_jax + 1) if local_batch % d == 0)
+    return m, m_jax
+
+
+def _pipelined(mesh) -> bool:
+    return mesh is not None and mesh.size("pp") > 1
+
+
+def _last_stage(mesh) -> bool:
+    """Whether this rank computes the head: always without a pipeline,
+    on the last stage under one."""
+    return not _pipelined(mesh) or mesh.coord("pp") == mesh.size("pp") - 1
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor,
             config: LlamaConfig, *, remat=False, return_kv: bool = False,
-            return_hidden: bool = False, mesh=None):
+            return_hidden: bool = False, mesh=None,
+            sequence_parallel: bool = False,
+            n_microbatches: Optional[int] = None):
     """Logits for tokens [B, T] -> [B, T, vocab] f32.
 
     With ``return_kv`` returns ``(logits, (k, v))``, k/v the post-rope
@@ -486,32 +587,78 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     gathers its weights inside its block (``_block``), ``tok_embed`` and
     ``lm_head`` are gathered whole, and the flash kernel runs on this
     rank's heads.
+
+    With ``sequence_parallel`` (and a mesh) ``tokens`` is this rank's
+    sequence block of the rows (``sharding.sequence_block``): the rope
+    positions carry the block's offset, and attention is ring attention
+    over sp.  With pp > 1 on the mesh the layer stack runs as a GPipe
+    pipeline over the stages (``parallel/pipeline.py``), in
+    ``pipeline_microbatches(B, mesh, n_microbatches)`` microbatches;
+    only the last stage has logits.  Any other stage returns a zero f32
+    scalar, the stand-in for its loss, which touches its pipeline output
+    and the head leaves (``final_norm``, ``lm_head``): their gradients,
+    zero here, are summed over pp with the last stage's, so every rank
+    runs the same collectives in the backward.
+
+    JAX's refusals, with its types and messages: ``sliding_window`` and
+    ``return_kv`` with sequence parallelism, ``return_kv`` under a
+    pipeline; the port refuses ``return_kv`` with any mesh.
     """
     c = config
     compute = c.compute_dtype
     B, T = tokens.shape
+    if sequence_parallel and c.sliding_window:
+        raise ValueError("sliding_window is not supported with "
+                         "sequence_parallel (ring attention is the "
+                         "full-context long path)")
+    if return_kv and sequence_parallel:
+        raise ValueError("return_kv is not supported with sequence_parallel")
+    if return_kv and _pipelined(mesh):
+        raise ValueError("return_kv is not supported under pipeline "
+                         "parallelism (stage-sharded layers)")
+    ring = (sequence_parallel and mesh is not None
+            and "sp" in mesh.axis_names)
     specs = None
     layers = params["layers"]
     if mesh is not None:
         if return_kv:
             raise ValueError("return_kv is not supported with a mesh")
         check_tp(c, mesh.size("tp"))
+        check_pp(c, mesh.size("pp"))
         specs = mesh_specs(c, mesh)
-        # The norm scales are replicated: one gradient all-reduce over the
-        # data axes for each stacked leaf.
-        layers = {**layers, **{name: gather(layers[name], specs[name], mesh)
+        # The norm scales are replicated but for a stage's layers: one
+        # gradient all-reduce over the summed axes for each stacked leaf.
+        layers = {**layers, **{name: gather(layers[name], specs[name], mesh,
+                                            keep=("pp",))
                                for name in ("attn_norm", "mlp_norm")}}
     h = _whole(params, "tok_embed", mesh, specs, compute)[tokens]
-    pos = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+    offset = mesh.coord("sp") * T if ring else 0
+    pos = torch.arange(offset, offset + T, device=tokens.device)[None, :]
+    if not _pipelined(mesh):
+        # A pipeline's microbatches take fewer rows: one row of tables
+        # broadcasts over them.
+        pos = pos.expand(B, T)
     cos, sin = _rope_tables(pos, c.head_dim, c.rope_theta, compute)
     block = _remat_wrap(_block, remat)
+    per_layer = unstack_layers(layers, layers["attn_norm"].shape[0])
     ks, vs = [], []
-    for layer in unstack_layers(layers, c.n_layers):
-        h, k, v = block(h, layer, cos, sin, c, mesh, specs)
-        if return_kv:
-            ks.append(k)
-            vs.append(v)
-    h = _rmsnorm(h, _whole(params, "final_norm", mesh, specs), c.norm_eps)
+    if _pipelined(mesh):
+        m, _ = pipeline_microbatches(B, mesh, n_microbatches)
+        h = gpipe(lambda hh, layer: block(hh, layer, cos, sin, c, mesh,
+                                          specs, ring)[0],
+                  per_layer, h, mesh, m)
+    else:
+        for layer in per_layer:
+            h, k, v = block(h, layer, cos, sin, c, mesh, specs, ring)
+            if return_kv:
+                ks.append(k)
+                vs.append(v)
+    final_norm = _whole(params, "final_norm", mesh, specs)
+    if not _last_stage(mesh):
+        return touch(torch.zeros((), dtype=torch.float32, device=h.device),
+                     h, final_norm,
+                     _whole(params, "lm_head", mesh, specs, compute))
+    h = _rmsnorm(h, final_norm, c.norm_eps)
     if return_hidden:
         return h
     logits = (h @ _whole(params, "lm_head", mesh, specs, compute)).float()
@@ -543,7 +690,8 @@ def _chunked_ce(h, lm_head, targets, chunk: int, compute):
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             config: LlamaConfig, *, remat=False, ce_chunk: int = 0,
-            mesh=None):
+            mesh=None, sequence_parallel: bool = False,
+            n_microbatches: Optional[int] = None):
     """Next-token cross-entropy, a scalar f32 tensor; batch: {"tokens":
     [B, T+1]}.  The CE is optax's ``softmax_cross_entropy_with_integer_
     labels`` on f32 logits, averaged over B * T.
@@ -553,31 +701,46 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     than silently falling back to the whole logits.
 
     With a ``mesh`` the batch is this rank's rows and the loss is the
-    global one: each rank's mean over its rows, divided by the data size
-    and summed over the data axes (``sum_over_data``), whose backward
-    leaves each rank the gradient of its own rows for the leaves'
-    collectives to sum."""
+    global one: each rank's mean over its tokens, divided by the number of
+    ranks holding other tokens (the data size times sp) and summed over
+    the summed axes (``sum_over_data``), whose backward leaves each rank
+    the gradient of its own tokens for the leaves' collectives to sum.
+    With ``sequence_parallel`` each rank takes its sequence block of the
+    rows (``sharding.sequence_block``; JAX refuses ``ce_chunk`` there).
+    Under a pipeline the last stage's loss is summed with the other
+    stages' zero stand-ins (``forward``)."""
     c = config
     tokens = batch["tokens"]
-    T = tokens.shape[1] - 1
-    targets = tokens[:, 1:].long()
-    if ce_chunk:
+    if sequence_parallel and ce_chunk:
+        raise ValueError("ce_chunk is not supported with "
+                         "sequence_parallel (logits are seq-sharded)")
+    if sequence_parallel and mesh is not None:
+        inputs, targets = sequence_block(tokens, mesh)
+    else:
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    targets = targets.long()
+    T = inputs.shape[1]
+    run = partial(forward, params, inputs, c, remat=remat, mesh=mesh,
+                  sequence_parallel=sequence_parallel,
+                  n_microbatches=n_microbatches)
+    if not _last_stage(mesh):
+        loss = run()
+    elif ce_chunk:
         if T % ce_chunk != 0:
             raise ValueError(f"ce_chunk={ce_chunk} does not divide seq {T}")
-        h = forward(params, tokens[:, :-1], c, remat=remat,
-                    return_hidden=True, mesh=mesh)
+        h = run(return_hidden=True)
         lm_head = params["lm_head"]
         if mesh is not None:
             lm_head = _whole(params, "lm_head", mesh, mesh_specs(c, mesh),
                              c.compute_dtype)
         loss = _chunked_ce(h, lm_head, targets, ce_chunk, c.compute_dtype)
     else:
-        logits = forward(params, tokens[:, :-1], c, remat=remat, mesh=mesh)
+        logits = run()
         loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                targets.reshape(-1))
     if mesh is None:
         return loss
-    return sum_over_data(loss / mesh.data_size(), mesh)
+    return sum_over_data(loss / (mesh.data_size() * mesh.size("sp")), mesh)
 
 
 def num_params(config: LlamaConfig) -> int:

@@ -109,6 +109,12 @@ def sharding_rules():
     ]
 
 
+def mesh_rules(mesh):
+    """The rules on ``mesh`` (the family has no pipeline): ``sharding_rules``
+    (``llama_elastic.state_blocks`` asks each family for its own)."""
+    return sharding_rules()
+
+
 #: Raises ``ValueError`` unless tp divides the query and KV heads and the
 #: ffn width, which the attention and the experts split by hand.  An ep
 #: that does not divide the experts is not refused: ``fit_spec`` then

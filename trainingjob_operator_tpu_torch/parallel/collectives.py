@@ -15,14 +15,24 @@ hand, each as a ``torch.autograd.Function``:
   gradient over tp, and an all-reduce over tp with an identity backward.
   Both take a tuple of model axes too (the MoE experts' ``("tp", "ep")``:
   one all-reduce per axis, which together sum over the sub-mesh).
-- ``sum_over_data`` -- a per-rank loss summed over the data axes (each
-  rank's loss is its rows' mean divided by the data size, so the sum is
-  the global mean), with an identity backward: every rank's graph gets the
-  gradient of its own rows, and the leaves' collectives sum them.
+- ``sum_over_data`` -- a per-rank loss summed over the mesh's summed
+  axes (``Mesh.summed_axes``: the data axes, sp and pp; each rank's loss
+  is its tokens' mean divided by the number of ranks holding other
+  tokens, so the sum is the global mean), with an identity backward:
+  every rank's graph gets the gradient of its own tokens, and the leaves'
+  collectives sum them.
+- ``ppermute_next`` / ``ppermute_prev`` -- a block shifted one hop around
+  the ring of an axis (JAX's ``ppermute`` over ``ring_permutation``): one
+  ``batch_isend_irecv`` of a send to the next rank and a receive from the
+  previous one, whose backward is the reverse shift.  Ring attention
+  (``parallel/ringattention.py``) rotates K and V with it over sp, the
+  pipeline (``parallel/pipeline.py``) hands a stage's output on over pp.
 
-Only ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
-``all_reduce`` are used.  Each call counts one launch
-(``collective_counts``).
+Only ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_reduce`` and ``batch_isend_irecv`` are used.  Each call counts one
+launch (``collective_counts``; a shift counts under ``p2p``).  The mesh
+checks of JAX's module (``require_axis``, ``require_ici_axis``) come with
+them.
 """
 
 from __future__ import annotations
@@ -32,10 +42,13 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from trainingjob_operator_tpu_torch.parallel.mesh import DATA_AXES
+from trainingjob_operator_tpu_torch.parallel.mesh import (
+    DATA_AXES,
+    axis_crosses_slices,
+)
 from trainingjob_operator_tpu_torch.parallel.sharding import Spec, axes_of
 
-_counts = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+_counts = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0, "p2p": 0}
 
 
 def collective_counts() -> Dict[str, int]:
@@ -147,13 +160,15 @@ def gather(x: torch.Tensor, spec: Spec, mesh,
            keep: Sequence[str] = ()) -> torch.Tensor:
     """The leaf ``x`` (this rank's block under the fitted ``spec``) cast to
     ``dtype`` and all-gathered on every axis of its spec but those in
-    ``keep``.  Its gradient comes back summed over every data axis of the
-    mesh: reduce-scattered over those the leaf is split on, all-reduced
-    over the others.  On a gathered model axis (tp) the ranks' gradients
-    are equal, and each takes its own block."""
-    split = {a for entry in spec for a in axes_of(entry)}
-    reduce_axes = tuple(a for a in DATA_AXES
-                        if a in mesh.sizes and a not in split)
+    ``keep``, which stay split (a layer leaf's tp columns, and the stage
+    block of a leaf split on pp, whose spec may have left that entry out).
+    Its gradient comes back summed over every summed axis of the mesh
+    (``Mesh.summed_axes``): reduce-scattered over those the leaf is split
+    on, all-reduced over the others but those in ``keep``.  On a gathered
+    model axis (tp) the ranks' gradients are equal, and each takes its own
+    block."""
+    split = {a for entry in spec for a in axes_of(entry)} | set(keep)
+    reduce_axes = tuple(a for a in mesh.summed_axes() if a not in split)
     return _Gather.apply(x, mesh, gather_steps(spec, keep), reduce_axes,
                          dtype)
 
@@ -211,9 +226,8 @@ def reduce_from_tp(x: torch.Tensor, mesh, axes: Axes = "tp") -> torch.Tensor:
 class _SumOverData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
-        for axis in DATA_AXES:
-            if axis in mesh.sizes:
-                x = _all_reduce(x, mesh.group(axis))
+        for axis in mesh.summed_axes():
+            x = _all_reduce(x, mesh.group(axis))
         return x
 
     @staticmethod
@@ -222,5 +236,91 @@ class _SumOverData(torch.autograd.Function):
 
 
 def sum_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` summed over the data axes; identity backward."""
+    """``x`` summed over the mesh's summed axes; identity backward."""
     return _SumOverData.apply(x, mesh)
+
+
+def ring_permutation(axis_size: int,
+                     reverse: bool = False) -> Tuple[Tuple[int, int], ...]:
+    """(source, destination) pairs of one hop around the ring: i -> i + 1,
+    or i -> i - 1 with ``reverse`` (JAX's ``ring_permutation``)."""
+    if reverse:
+        return tuple((i, (i - 1) % axis_size) for i in range(axis_size))
+    return tuple((i, (i + 1) % axis_size) for i in range(axis_size))
+
+
+def _shift(x: torch.Tensor, mesh, axis: str, reverse: bool) -> torch.Tensor:
+    """The block of the previous rank on ``axis`` (of the next one with
+    ``reverse``): this rank's ``x`` sent one hop along
+    ``ring_permutation`` and the neighbour's received, in one
+    ``batch_isend_irecv`` on the axis's group.  ``x`` itself at an axis of
+    size 1: a rank never sends to itself."""
+    size = mesh.size(axis)
+    if size == 1:
+        return x
+    import torch.distributed as dist
+
+    group = mesh.group(axis)
+    me = mesh.coord(axis)
+    perm = ring_permutation(size, reverse)
+    dst = dist.get_global_rank(group, dict(perm)[me])
+    src = dist.get_global_rank(group, {d: s for s, d in perm}[me])
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, dst, group=group),
+        dist.P2POp(dist.irecv, out, src, group=group)])
+    for work in works:
+        work.wait()
+    _counts["p2p"] += 1
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, reverse):
+        ctx.mesh, ctx.axis, ctx.reverse = mesh, axis, reverse
+        y = _shift(x, mesh, axis, reverse)
+        # A Function's output must not be its input (size 1).
+        return x.view_as(x) if y is x else y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_shift(grad, ctx.mesh, ctx.axis, not ctx.reverse), None,
+                None, None)
+
+
+def ppermute_next(x: torch.Tensor, mesh, axis: str = "sp") -> torch.Tensor:
+    """Rotate a block one hop around the ring of ``axis`` (rank i's ``x``
+    goes to rank i + 1; this rank gets rank i - 1's); the backward rotates
+    the gradient back."""
+    return _Shift.apply(x, mesh, axis, False)
+
+
+def ppermute_prev(x: torch.Tensor, mesh, axis: str = "sp") -> torch.Tensor:
+    """Rotate one hop the other way (rank i's ``x`` goes to rank i - 1)."""
+    return _Shift.apply(x, mesh, axis, True)
+
+
+def require_axis(mesh, axis: str) -> int:
+    """The size of ``axis``; ``ValueError`` where the mesh lacks it (JAX's
+    ``require_axis``, message and all)."""
+    if axis not in mesh.axis_names:
+        raise ValueError(
+            f"mesh has axes {mesh.axis_names}, no {axis!r}; build the mesh "
+            f"with MeshSpec.of(..., {axis}=n) (parallel/mesh.py)")
+    return mesh.size(axis)
+
+
+def require_ici_axis(mesh, axis: str) -> int:
+    """As ``require_axis``, and ``ValueError`` (JAX's message) where
+    ``axis`` crosses slices (``mesh.axis_crosses_slices`` over the mesh's
+    ``num_slices``): a ring over the network between slices would wait on
+    it at every hop."""
+    size = require_axis(mesh, axis)
+    if axis_crosses_slices(mesh.spec, axis, mesh.num_slices):
+        raise ValueError(
+            f"mesh axis {axis!r} crosses slice boundaries (DCN); ring/"
+            f"per-layer collectives must ride ICI -- put the DCN hop on the "
+            f"leading dp axis instead (parallel/mesh.py axis convention)")
+    return size

@@ -14,8 +14,23 @@ world size.  The axes, in DCN-outermost order:
 - ``ep``   -- expert parallel: the MoE family's experts split
               (``models/moe.py``); each ep rank of a data shard runs its
               experts on the shard's rows, and their outputs are summed.
-- ``pp``, ``sp`` -- pipeline and sequence axes; the port's models refuse
-              them above 1.
+- ``pp``   -- pipeline parallel: each rank holds one stage's contiguous
+              block of the stacked layers, and the layer stack runs as a
+              GPipe schedule over the stages (``parallel/pipeline.py``).
+- ``sp``   -- sequence parallel: the ranks of a data shard hold the same
+              rows and different sequence blocks, and attention runs as
+              ring attention over them (``parallel/ringattention.py``).
+
+Two sets of axes, which the JAX package leaves to GSPMD:
+
+- ``DATA_AXES`` (dp, fsdp) split a batch's rows (``data_size``,
+  ``data_index``, ``sharding.data_rows``).
+- ``summed_axes`` are the axes whose ranks hold other work on the batch:
+  the data axes, and sp and pp where they are above 1 (other sequence
+  blocks; other stages, of which only the first reads the embedding and
+  only the last the head).  The loss and the gradient of every leaf that
+  is not split on such an axis are summed over it
+  (``parallel/collectives.py``).
 
 ``resized_mesh_spec`` has no ``ep``: JAX's MoE trainer has no resize in
 place.
@@ -23,6 +38,7 @@ place.
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Dict, Tuple
@@ -31,6 +47,9 @@ from typing import Dict, Tuple
 AXIS_ORDER = ("dp", "pp", "fsdp", "tp", "sp", "ep")
 #: The data axes: a batch's rows are split over them, major first.
 DATA_AXES = ("dp", "fsdp")
+#: Axes whose ranks hold other tokens of the same rows (sp) or other
+#: stages of the same layer stack (pp): summed over beside the data axes.
+TOKEN_AXES = ("pp", "sp")
 
 
 @dataclass(frozen=True)
@@ -119,9 +138,11 @@ class Mesh:
     ``sizes`` (name -> size), this rank's coordinate on each axis
     (``coord``) and the process group along one (``group``)."""
 
-    def __init__(self, spec: MeshSpec, device_mesh):
+    def __init__(self, spec: MeshSpec, device_mesh, num_slices: int = 1):
         self.spec = spec
         self.device_mesh = device_mesh
+        #: Slices the ranks span, slice-major (``axis_crosses_slices``).
+        self.num_slices = max(int(num_slices), 1)
         self.axis_names = spec.names
         self.sizes = spec.sizes
         coords = device_mesh.get_coordinate()
@@ -150,14 +171,43 @@ class Mesh:
         spec ``P(("dp", "fsdp"))`` lays the rows out)."""
         return self.coord("dp") * self.size("fsdp") + self.coord("fsdp")
 
+    def summed_axes(self) -> Tuple[str, ...]:
+        """The axes the loss and a leaf's gradient are summed over where
+        the leaf is not split on them: every data axis of the mesh (a sum
+        over one rank is a copy), and sp and pp where above 1."""
+        return tuple(a for a in DATA_AXES if a in self.sizes) + tuple(
+            a for a in TOKEN_AXES if self.size(a) > 1)
 
-def make_mesh(spec: MeshSpec, device_type: str) -> Mesh:
+
+def axis_crosses_slices(spec: MeshSpec, axis: str, num_slices: int) -> bool:
+    """Whether moving along ``axis`` (the other coordinates held) ever
+    changes slice, for ranks laid out row-major over ``spec`` and
+    ``num_slices`` slices of consecutive ranks (the JAX package's
+    ``axis_crosses_dcn`` over slice-major devices)."""
+    if axis not in spec.names:
+        raise ValueError(f"axis {axis!r} not in mesh {spec.names}")
+    if num_slices <= 1:
+        return False
+    per = spec.size() // num_slices
+    ranks = list(itertools.product(*(range(n) for n in spec.shape)))
+    i = spec.names.index(axis)
+    columns: Dict[Tuple[int, ...], set] = {}
+    for rank, coords in enumerate(ranks):
+        rest = coords[:i] + coords[i + 1:]
+        columns.setdefault(rest, set()).add(rank // per)
+    return any(len(ids) > 1 for ids in columns.values())
+
+
+def make_mesh(spec: MeshSpec, device_type: str,
+              num_slices: int = 1) -> Mesh:
     """The ``DeviceMesh`` of ``spec`` over the process group's ranks
     (``init_device_mesh``, axis names as in JAX); its size must equal the
     world size.  A ``Mesh`` holds the sub-groups of the process group it
     was made on: after the group is destroyed and formed again (an
     elastic resize), make a new one, and everything that closed over the
-    old one (the step, its collectives) anew."""
+    old one (the step, its collectives) anew.  ``num_slices`` is the
+    job's slice count (``MEGASCALE_NUM_SLICES``), which ring attention
+    checks its axis against (``collectives.require_ici_axis``)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -166,4 +216,5 @@ def make_mesh(spec: MeshSpec, device_type: str) -> Mesh:
         raise ValueError(f"mesh {dict(spec.axes)} needs {spec.size()} "
                          f"devices, have {world}")
     return Mesh(spec, init_device_mesh(device_type, spec.shape,
-                                       mesh_dim_names=spec.names))
+                                       mesh_dim_names=spec.names),
+                num_slices)

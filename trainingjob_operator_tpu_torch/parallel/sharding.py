@@ -11,7 +11,8 @@ Where JAX hands the spec to the compiler, the port keeps each rank's block
 of every leaf itself (``block_of``, ``shard_tree``) and its models gather
 what they use (``parallel/collectives.py``).  A batch's rows are split over
 the data axes (``data_rows``, in place of ``batch_spec`` and
-``globalize_batch``).
+``globalize_batch``), and each row's sequence over sp
+(``sequence_block``, in place of the ring's ``shard_map`` specs).
 """
 
 from __future__ import annotations
@@ -145,3 +146,20 @@ def data_rows(global_batch: int, mesh) -> Tuple[int, int]:
                          f"data shards")
     local = global_batch // n
     return mesh.data_index() * local, local
+
+
+def sequence_block(tokens: torch.Tensor, mesh, axis: str = "sp"):
+    """(inputs, targets) of this rank's sequence block of ``[B, T+1]``
+    token rows: with ``Tl = T / sp`` and ``r`` the rank's index on
+    ``axis``, inputs ``tokens[:, r Tl:(r+1) Tl]`` and targets
+    ``tokens[:, r Tl+1:(r+1) Tl+1]``, so that a target crosses a block's
+    edge as it does in the whole sequence.  ``ValueError`` where sp does
+    not divide T (JAX's ``shard_map`` refuses such a split too)."""
+    sp, r = mesh.size(axis), mesh.coord(axis)
+    T = tokens.shape[1] - 1
+    if T % sp != 0:
+        raise ValueError(f"a sequence of {T} tokens is not evenly divisible "
+                         f"by mesh axis {axis!r}: {sp} does not evenly "
+                         f"divide {T}")
+    n = T // sp
+    return tokens[:, r * n:(r + 1) * n], tokens[:, r * n + 1:(r + 1) * n + 1]

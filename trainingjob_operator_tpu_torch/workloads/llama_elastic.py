@@ -13,12 +13,15 @@ Across processes (``TRAININGJOB_COORDINATOR_ADDRESS``, ``_NUM_PROCESSES``,
 ``_PROCESS_ID``; ``MEGASCALE_NUM_SLICES`` sets dp) each process drives one
 card: the process group forms (``rendezvous.initialize_distributed``;
 with a coordinator address a single process forms a group of one), the
-``dp x fsdp x tp`` mesh is built as the JAX ``mesh_from_rendezvous``
-builds it, each process initialises and keeps only its blocks of the
-parameters and AdamW state, trains on its rows of the global batch, and
-writes its shard of each checkpoint, which restores at any width.  Not
-ported yet, and refused at startup rather than ignored: sequence and
-pipeline parallelism (``LLAMA_SP/PP`` > 1; ROADMAP.md queue 1 item 2).
+``dp x pp x fsdp x tp x sp`` mesh is built as the JAX
+``mesh_from_rendezvous`` builds it, each process initialises and keeps
+only its blocks of the parameters and AdamW state, trains on its rows of
+the global batch (and, under sp, its sequence block of them), and writes
+its shard of each checkpoint, which restores at any width.  LLAMA_SP > 1
+runs attention as ring attention over the sequence blocks, LLAMA_PP > 1
+the layer stack as a GPipe pipeline over the stages (``models/llama.py``;
+LLAMA_PP_MICROBATCH, or JAX's default, sets the microbatches, taken from
+each process's rows: ``llama.pipeline_microbatches``).
 
 Resize in place (``TRAININGJOB_RESIZE_DIR``): the step loop polls the
 controller's ``generation.json`` (``rendezvous.GenerationWatcher``) and
@@ -40,7 +43,8 @@ restores), f32 masters cast to the compute dtype at each use.
 
 Run: ``python -m trainingjob_operator_tpu_torch.workloads.llama_elastic
 [--device cuda|cpu]``.  Env, as the JAX module reads it:
-LLAMA_CONFIG=tiny|124m|7b, LLAMA_TP, LLAMA_STEPS, LLAMA_BATCH (global),
+LLAMA_CONFIG=tiny|124m|7b, LLAMA_TP, LLAMA_SP, LLAMA_PP,
+LLAMA_PP_MICROBATCH, LLAMA_STEPS, LLAMA_BATCH (global),
 LLAMA_SEQ, LLAMA_LR, LLAMA_ACCUM (gradient-accumulation microbatches),
 LLAMA_CKPT_EVERY (the loss-print and checkpoint cadence), LLAMA_REMAT
 (none/full/attn/dots; default ``default_remat``: "attn" at 32 layers,
@@ -75,7 +79,8 @@ from trainingjob_operator_tpu_torch import resolve_device
 
 def make_step_fn(params, cfg, *, accum: int, lr: float, remat="none",
                  ce_chunk: int = 0, opt_state: Optional[dict] = None,
-                 mesh=None, loss_fn: Optional[Callable] = None
+                 mesh=None, loss_fn: Optional[Callable] = None,
+                 sequence_parallel: bool = False
                  ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The train step of ``main``: loss and gradients of ``loss_fn``
     (default ``llama.loss_fn``; ``moe_pretrain`` passes ``moe.loss_fn``)
@@ -90,7 +95,8 @@ def make_step_fn(params, cfg, *, accum: int, lr: float, remat="none",
     and ``tokens`` its rows of the global batch; the gradients reach each
     block summed over the data axes (``llama.loss_fn``), so AdamW, which is
     elementwise, updates the blocks as it would the whole leaves, and the
-    loss returned is the global one."""
+    loss returned is the global one.  ``sequence_parallel`` is passed to
+    ``llama.loss_fn`` where set (JAX's ``llama_elastic.py:139-141``)."""
     from trainingjob_operator_tpu_torch.models import llama
     from trainingjob_operator_tpu_torch.workloads import train
 
@@ -98,9 +104,11 @@ def make_step_fn(params, cfg, *, accum: int, lr: float, remat="none",
                       state=opt_state)
     model_loss = loss_fn or llama.loss_fn
 
+    extra = {"sequence_parallel": True} if sequence_parallel else {}
+
     def loss(p, tokens):
         return model_loss(p, {"tokens": tokens}, cfg, remat=remat,
-                          ce_chunk=ce_chunk, mesh=mesh)
+                          ce_chunk=ce_chunk, mesh=mesh, **extra)
 
     def step_fn(tokens):
         value, grads = train.accumulated_value_and_grad(loss, params, tokens,
@@ -115,9 +123,9 @@ def make_step_fn(params, cfg, *, accum: int, lr: float, remat="none",
 def state_blocks(cfg, mesh, model=None) -> Dict[str, Any]:
     """This process's blocks (``sharding.Block``) of the parameters and
     the AdamW moments on ``mesh``, keyed as the checkpoint tree, under the
-    ``param_shapes`` and ``sharding_rules`` of the family's ``model``
-    module (default ``models.llama``; the MoE trainer passes
-    ``models.moe``); ``{}`` (every leaf whole) without a mesh."""
+    ``param_shapes`` and ``mesh_rules`` of the family's ``model`` module
+    (default ``models.llama``, whose layers split on pp; the MoE trainer
+    passes ``models.moe``); ``{}`` (every leaf whole) without a mesh."""
     if mesh is None:
         return {}
     from trainingjob_operator_tpu_torch.models import llama
@@ -125,7 +133,7 @@ def state_blocks(cfg, mesh, model=None) -> Dict[str, Any]:
 
     model = model or llama
     blocks = sharding.tree_blocks(model.param_shapes(cfg),
-                                  model.sharding_rules(), mesh)
+                                  model.mesh_rules(mesh), mesh)
     return {"params": blocks, "opt_state": {"mu": blocks, "nu": blocks}}
 
 
@@ -174,14 +182,15 @@ def persist_and_exit(ts: TrainState, step: int) -> int:
 
 def resize_cycle(ts: TrainState, watcher, *, cfg, lr: float, tp: int,
                  rebuild: Callable[[TrainState], None], tracer,
-                 trace_parent: str = "") -> Optional[int]:
+                 trace_parent: str = "", sp: int = 1,
+                 pp: int = 1) -> Optional[int]:
     """One resize in place, for the generation doc ``watcher.pending``:
     the ladder of the JAX ``llama_elastic`` loop.
 
     Rebootstrap the process group at the published generation (span
     ``resize.rendezvous``), build the new mesh (``resize.requod``: one
     process drives one card, so the new world has as many cards as
-    processes, which tp must divide), then take the live rung where one
+    processes, which tp sp pp must divide; sp and pp stay), then take the live rung where one
     process held the whole state (``redistribute`` on its device; span
     ``resize.reshard``) or restore the last committed checkpoint onto the
     new mesh (``fallback=1``; a fresh init at the interrupted step where
@@ -224,10 +233,11 @@ def resize_cycle(ts: TrainState, watcher, *, cfg, lr: float, tp: int,
         lost_ranks = [i for i, r in enumerate(world)
                       if r not in set(new_world)]
         n_dev = new_rdv.num_processes
-        if n_dev <= 0 or n_dev % tp != 0:
+        inner = tp * sp * pp
+        if n_dev <= 0 or n_dev % inner != 0:
             raise rendezvous.RebootstrapError(
                 "reshard", f"{n_dev} devices not divisible by "
-                           f"tp*sp*pp={tp}")
+                           f"tp*sp*pp={inner}")
         ladder_phase = "reshard"
         rendezvous.check_fault("reshard", generation)
         train.push_rendezvous_record(sum(rdv_times.values()),
@@ -244,10 +254,12 @@ def resize_cycle(ts: TrainState, watcher, *, cfg, lr: float, tp: int,
         with tracer.span("resize.requod", parent=trace_parent,
                          generation=generation, world=len(new_world),
                          devices=n_dev):
-            spec = pmesh.resized_mesh_spec(n_dev, new_rdv.num_slices, tp)
+            spec = pmesh.resized_mesh_spec(n_dev, new_rdv.num_slices, tp,
+                                           sp, pp)
             new_mesh = None
             if ts.mesh is not None or was_multi:
-                new_mesh = pmesh.make_mesh(spec, device.type)
+                new_mesh = pmesh.make_mesh(spec, device.type,
+                                           new_rdv.num_slices)
         t_r1 = time.time()
         fellback = 0
         if not was_multi and (agg["covered"] or addressable):
@@ -368,7 +380,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from trainingjob_operator_tpu_torch.models import llama
     from trainingjob_operator_tpu_torch.obs.trace import tracer_from_env
     from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
-    from trainingjob_operator_tpu_torch.parallel import sharding
+    from trainingjob_operator_tpu_torch.parallel import pipeline, sharding
     from trainingjob_operator_tpu_torch.workloads import rendezvous, train
 
     rdv = rendezvous.from_env()
@@ -385,18 +397,18 @@ def main(argv: Optional[List[str]] = None) -> int:
             raise ValueError(f"LLAMA_DTYPE={dtype!r}: expected bfloat16 or "
                              f"float32")
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    for axis in ("SP", "PP"):
-        if int(env.get(f"LLAMA_{axis}", "1")) > 1:
-            raise NotImplementedError(
-                f"LLAMA_{axis} > 1: sequence and pipeline parallelism are "
-                f"not ported yet (ROADMAP.md queue 1 item 2)")
     tp = int(env.get("LLAMA_TP", "1"))
+    sp = int(env.get("LLAMA_SP", "1"))
+    pp = int(env.get("LLAMA_PP", "1"))
     llama.check_tp(cfg, tp)
-    spec = pmesh.mesh_spec_from_rendezvous(rdv, model_parallel=tp)
+    llama.check_pp(cfg, pp)
+    spec = pmesh.mesh_spec_from_rendezvous(rdv, model_parallel=tp,
+                                           sequence_parallel=sp,
+                                           pipeline_parallel=pp)
     mesh = None
     if rdv.coordinator_address or rdv.num_processes > 1:
         device = rendezvous.initialize_distributed(rdv, device)
-        mesh = pmesh.make_mesh(spec, device.type)
+        mesh = pmesh.make_mesh(spec, device.type, rdv.num_slices)
     t_init = time.time()
     steps = int(env.get("LLAMA_STEPS", "20"))
     batch_req = int(env.get("LLAMA_BATCH", "8"))
@@ -462,6 +474,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                                                        accum=accum_req)
         row0, local_batch = (sharding.data_rows(global_batch, mesh)
                              if mesh is not None else (0, global_batch))
+        if mesh is not None and mesh.size("pp") > 1:
+            rows = local_batch // accum
+            m, m_jax = llama.pipeline_microbatches(rows, mesh)
+            print(f"pipeline: stages={mesh.size('pp')} microbatches={m} "
+                  f"bubble={pipeline.bubble_fraction(mesh.size('pp'), m):.3f}"
+                  + (f" (JAX's {m_jax} does not divide this process's "
+                     f"{rows} rows)" if m != m_jax else ""), flush=True)
         # Training batches are made on the host and copied to the card by
         # the loop's prefetcher; eval batches go straight to the card.
         batch_at, eval_host_at, eval_every, eval_batches = (
@@ -477,7 +496,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             eval_fn = train.mean_eval_fn(
                 lambda tokens: llama.loss_fn(params, {"tokens": tokens}, cfg,
                                              remat=remat, ce_chunk=ce_chunk,
-                                             mesh=mesh),
+                                             mesh=mesh,
+                                             sequence_parallel=sp > 1),
                 lambda j: eval_host_at(j).to(dev), eval_batches)
         width.clear()
         width.update(
@@ -485,7 +505,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             eval_every=eval_every,
             step_fn=make_step_fn(params, cfg, accum=accum, lr=lr,
                                  remat=remat, ce_chunk=ce_chunk,
-                                 opt_state=ts.opt_state, mesh=mesh))
+                                 opt_state=ts.opt_state, mesh=mesh,
+                                 sequence_parallel=sp > 1))
 
     width_build(ts)
     watcher = (rendezvous.GenerationWatcher(rdv) if rdv.resize_dir
@@ -511,7 +532,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             width.clear()
             rc = resize_cycle(ts, watcher, cfg=cfg, lr=lr, tp=tp,
                               rebuild=width_build, tracer=tracer,
-                              trace_parent=trace_parent)
+                              trace_parent=trace_parent, sp=sp, pp=pp)
             if rc is not None:
                 return rc
     finally:
