@@ -154,6 +154,35 @@ script exits non-zero):
    uninterrupted run's bit for bit; then the ``generate`` main with
    GEN_FAMILY=moe on each checkpoint (the sharded one too) and ``serve``
    on the single-card one.
+18. bert_base (after sp_7b_width): BERT-base (12 layers, vocab 30522,
+   bf16) on one card, the trainer's step at seq 128 and global batch 256
+   (the BERT paper's phase-1 pretraining shape), 8 steps on one batch:
+   the loss falls; step time (median of steps 2-8), tokens/s, peak
+   memory, the idle share (``profile_steps``) and a device-time split
+   (``op_split``) into dense GEMMs, attention (its two batched products
+   and the work on the scores), LayerNorm/GELU, the f32 logits and
+   cross-entropy, AdamW and the rest; beside it the
+   tiny fp32 config's losses on the card and on the CPU within
+   TINY_TRAJ_RTOL.
+19. resnet50: ResNet-50 at 224 px, global batch 128, bf16, the trainer's
+   SGD step (lr RESNET_LR), 8 steps on one batch: the loss falls and the
+   running statistics stay finite; step time, images/s, peak memory, the
+   idle share and a split into convolutions, batch norm/relu work on the
+   activations, pads and pools, SGD, the head and the rest; the tiny fp32
+   trajectory, card against CPU.
+20. mnist_resume, bert_resume, resnet_resume (after moe_resume): the
+   kill-and-resume contract of the JAX mains of configs 1, 4 and 3
+   (``workload_resumes``): each entry point as processes on the card, an
+   uninterrupted run beside one killed (exit -9) once its step-20 (MNIST,
+   at JAX's defaults: hidden 256, batch 128, 60 steps) or step-10 (BERT
+   and ResNet, tiny, 20 steps) save has committed; the restart resumes
+   there, its loss lines equal the uninterrupted run's and its last
+   checkpoint equals that run's bit for bit; BERT also with a
+   coordinator at world 1 (NCCL, the sharded checkpoint).  MNIST's
+   restart runs alone and reports its process start -> first step
+   seconds, split into imports, CUDA init, set-up, restore and the first
+   step.  These workloads reach no TPU kernel in the reference: every
+   phase of 18-20 must launch none of the port's kernels.
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
@@ -2495,6 +2524,469 @@ def moe_resume(torch, moe, moe_decode, train, sink, workdir):
                          for key in launches[0]}}
 
 
+# -- the three workloads of config 1, 3 and 4 ---------------------------------
+
+#: bert_base: BERT-base (12 layers, bf16) at the BERT paper's phase-1
+#: pretraining shape, seq 128 and global batch 256, on one repeated batch.
+BERT_SEQ, BERT_BATCH, BERT_STEPS, BERT_LR = 128, 256, 8, 1e-4
+#: resnet50: ResNet-50 at ImageNet resolution, global batch 128, bf16,
+#: the trainer's SGD (momentum 0.9) on one repeated batch, at lr 0.01:
+#: at the trainer's 0.1 the loss on one repeated batch overshoots within
+#: a few steps and climbs back, and the step's time does not depend on
+#: the rate.
+RESNET_IMAGE, RESNET_BATCH, RESNET_STEPS, RESNET_LR = 224, 128, 8, 0.01
+#: Tiny fp32 trajectories, the card against the CPU (TF32 off for cuBLAS
+#: and cuDNN: main sets it), relative.
+TINY_TRAJ_RTOL = 1e-4
+#: Steps of the tiny trajectories.
+TINY_TRAJ_STEPS = 4
+
+
+def op_split(torch, step, classify, ranges, n: int = 2):
+    """Device ms a call of ``step`` spends by class, from one
+    ``torch.profiler`` window of ``n`` calls with input shapes: all the
+    kernels under a ``record_function`` range of ``ranges`` (name ->
+    class), and each other op's own kernels (host and autograd calls
+    alike) under ``classify(names, shapes)`` (the op's name and those of
+    the ops it runs inside, innermost first; its input shapes), where
+    that gives a class; the rest as ``other``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    split = {}
+
+    def add(key, us):
+        split[key] = split.get(key, 0.0) + us / 1e3 / n
+
+    total = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            total += e.self_device_time_total / 1e3 / n
+            continue
+        names, parent = [e.name], e.cpu_parent
+        while parent is not None:
+            names.append(parent.name)
+            parent = parent.cpu_parent
+        if e.name in ranges:
+            add(ranges[e.name], e.device_time_total)
+        elif not any(name in ranges for name in names[1:]):
+            key = classify(names, [tuple(x) for x in e.input_shapes
+                                   if isinstance(x, (list, tuple))])
+            if key and e.self_device_time_total:
+                add(key, e.self_device_time_total)
+    split["other"] = total - sum(split.values())
+    return {"device_ms": total, "ms": split,
+            "share": {k: v / total for k, v in split.items()} if total
+            else {}}
+
+
+def _ranged(opt, name: str):
+    """``opt.step`` run under ``record_function(name)``, for ``op_split``
+    to find the optimizer's kernels."""
+    from torch.profiler import record_function
+
+    real = opt.step
+
+    def step(params, grads):
+        with record_function(name):
+            real(params, grads)
+
+    opt.step = step
+
+
+def no_launches(what: str, counts) -> dict:
+    """The workloads of configs 1, 3 and 4 reach no TPU kernel in the
+    reference, so their paths launch none of the port's: ``counts`` must
+    be all zero."""
+    if any(counts.values()):
+        raise AssertionError(f"{what}: kernel launches {counts}")
+    return dict(counts)
+
+
+def tiny_trajectory(torch, run) -> dict:
+    """``run(device)`` (TINY_TRAJ_STEPS losses of a tiny fp32 config from
+    the same parameters and batches) on the card and on the CPU: within
+    TINY_TRAJ_RTOL of each other at every step."""
+    card, cpu = run("cuda"), run("cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    if not rel <= TINY_TRAJ_RTOL:
+        raise AssertionError(f"tiny trajectory: card {card} vs cpu {cpu}")
+    return {"card": card, "cpu": cpu, "max_rel_err": rel,
+            "rtol": TINY_TRAJ_RTOL}
+
+
+def width_steps(torch, step, steps: int) -> dict:
+    """``steps`` calls of ``step`` (each returns the loss) from zeroed
+    launch counters: the losses, each step's seconds (synchronised), the
+    median of steps 2 on, the peak memory and the launches."""
+    from trainingjob_operator_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(float(step()))
+        step_s.append(time.perf_counter() - t)
+    counts = ops.launch_counts()
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    return {"losses": losses, "step_s": step_s, "step_s_median": steady,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": counts}
+
+
+def bert_base(torch, bert, bert_pretrain, train):
+    """BERT-base (vocab 30522, dim 768, 12 layers, 12 heads, ffn 3072) in
+    bf16 on one card, the trainer's step (``bert_pretrain.make_step``:
+    AdamW b2 0.999, weight decay 0.01) at seq 128 and global batch 256,
+    8 steps on one repeated batch: the loss falls, no kernel of the port
+    is launched; step time, tokens/s, peak memory, a step profile (idle
+    share) and its split into dense GEMMs, attention (the two batched
+    products and all the work on the [B, H, T, T] scores), LayerNorm and
+    GELU, the f32 logits and cross-entropy, AdamW and the rest.
+    Beside it, the tiny fp32 config's trajectory on the card and on the
+    CPU."""
+    dev = torch.device("cuda")
+    cfg = bert.BertConfig.base()
+    t0 = time.perf_counter()
+    params = bert.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              dev)
+    for leaf in train.tree_leaves(params):
+        leaf.requires_grad_(True)
+    step = bert_pretrain.make_step(params, cfg, lr=BERT_LR)
+    _ranged(step.opt, "adamw")
+    batch = {k: v.to(dev) for k, v in bert_pretrain.batch_at(
+        0, BERT_BATCH, BERT_SEQ, cfg.vocab_size).items()}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = width_steps(torch, lambda: step(batch), BERT_STEPS)
+    no_launches("bert_base", out["launches"])
+
+    def classify(names, shapes):
+        op = names[0]
+        if op in ("aten::mm", "aten::addmm"):
+            return "gemm"
+        if op == "aten::bmm" or any(
+                len(x) == 4 and x[-2:] == (BERT_SEQ, BERT_SEQ)
+                for x in shapes):
+            # The two batched products and all the [B, H, T, T] work: the
+            # scale, the mask, the f32 softmax and its casts.
+            return "attention"
+        if any("layer_norm" in name or "gelu" in name for name in names):
+            return "layernorm_gelu"
+        if any(cfg.vocab_size in x for x in shapes):
+            # The f32 logits: their cast, mlm_bias, the cross-entropy.
+            return "logits_ce"
+        return None
+
+    def tiny(where):
+        c = dataclasses.replace(bert.BertConfig.tiny(), dtype="float32")
+        p = bert.init_params(c, torch.Generator().manual_seed(0), where)
+        for leaf in train.tree_leaves(p):
+            leaf.requires_grad_(True)
+        s = bert_pretrain.make_step(p, c, lr=1e-3)
+        return [float(s({k: v.to(where) for k, v in bert_pretrain.batch_at(
+            i, 8, 64, c.vocab_size).items()})) for i in range(TINY_TRAJ_STEPS)]
+
+    tokens = BERT_BATCH * BERT_SEQ
+    return {"n_layers": cfg.n_layers, "n_params": bert.num_params(cfg),
+            "dtype": cfg.dtype, "seq": BERT_SEQ, "global_batch": BERT_BATCH,
+            "lr": BERT_LR, "init_s": init_s, **out,
+            "tokens_per_s": tokens / out["step_s_median"],
+            "model_tflops_per_s": 6.0 * bert.num_params(cfg) * tokens
+            / out["step_s_median"] / 1e12,
+            "step_profile": profile_steps(torch, lambda: step(batch), n=2),
+            "step_split": op_split(torch, lambda: step(batch), classify,
+                                   {"adamw": "adamw"}),
+            "tiny_fp32_trajectory": tiny_trajectory(torch, tiny)}
+
+
+def resnet50(torch, resnet, resnet_dp, train):
+    """ResNet-50 ([3, 4, 6, 3], width 64, 1000 classes) in bf16 on one
+    card, the trainer's step (``resnet_dp.make_step``: SGD, momentum 0.9,
+    ``channels_last`` images; lr RESNET_LR) at 224 px and global batch
+    128, 8 steps on one repeated batch, cuDNN's deterministic
+    convolutions as in the trainer: the loss falls, the running
+    statistics stay finite, no kernel of the port is launched; step time,
+    images/s, peak memory, a step profile (idle share) and its split into
+    convolutions, batch norm with relu and the other work on activations,
+    pads and pools, SGD, the head and the rest.  Beside it, the tiny
+    fp32 config's trajectory on the card and on the CPU."""
+    dev = torch.device("cuda")
+    cfg = resnet.ResNetConfig.resnet50()
+    # As the trainer runs (a resume must equal an uninterrupted run).
+    resnet_dp.deterministic_convolutions()
+    t0 = time.perf_counter()
+    params, stats = resnet.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    for leaf in train.tree_leaves(params):
+        leaf.requires_grad_(True)
+    step = resnet_dp.make_step(params, stats, cfg, lr=RESNET_LR,
+                               channels_last=True)
+    _ranged(step.opt, "sgd")
+    images, labels = resnet_dp.batch_at(0, RESNET_BATCH, RESNET_IMAGE,
+                                        cfg.num_classes)
+    images, labels = images.to(dev), labels.to(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = width_steps(torch, lambda: step(images, labels), RESNET_STEPS)
+    no_launches("resnet50", out["launches"])
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in train.tree_leaves(stats))
+    if not finite:
+        raise AssertionError("resnet50: running statistics not finite")
+
+    def classify(names, shapes):
+        if any("convolution" in name for name in names):
+            return "conv"
+        if any("pad" in name or "max_pool" in name for name in names):
+            return "pad_pool"
+        if names[0] in ("aten::mm", "aten::addmm"):
+            return "head_gemm"
+        if any(len(x) == 4 for x in shapes):
+            # Batch norm's f32 work on the activations, relu, the
+            # residual adds and the casts.
+            return "bn_relu_elementwise"
+        return None
+
+    def tiny(where):
+        c = dataclasses.replace(resnet.ResNetConfig.tiny(), dtype="float32")
+        p, s = resnet.init_params(c, torch.Generator().manual_seed(0), where)
+        for leaf in train.tree_leaves(p):
+            leaf.requires_grad_(True)
+        st = resnet_dp.make_step(p, s, c, lr=RESNET_LR,
+                                 channels_last=where == "cuda")
+        out = []
+        for i in range(TINY_TRAJ_STEPS):
+            x, y = resnet_dp.batch_at(i, 8, 64, c.num_classes)
+            out.append(float(st(x.to(where), y.to(where))))
+        return out
+
+    return {"stage_sizes": list(cfg.stage_sizes),
+            "n_params": resnet.num_params(cfg), "dtype": cfg.dtype,
+            "image": RESNET_IMAGE, "global_batch": RESNET_BATCH,
+            "lr": RESNET_LR, "init_s": init_s, **out,
+            "imgs_per_s": RESNET_BATCH / out["step_s_median"],
+            "stats_finite": finite,
+            "step_profile": profile_steps(
+                torch, lambda: step(images, labels), n=2),
+            "step_split": op_split(torch, lambda: step(images, labels),
+                                   classify, {"sgd": "sgd"}),
+            "tiny_fp32_trajectory": tiny_trajectory(torch, tiny)}
+
+
+#: The kill-and-resume runs: each workload's steps, and the step whose
+#: committed save the killed run dies after (``TRAININGJOB_KILL_AT_STEP``).
+MNIST_STEPS, MNIST_KILL_AT = 60, 20
+WORKLOAD_STEPS, WORKLOAD_KILL_AT = 20, 10
+#: BERT's tiny config holds 64 positions: the trainer's default BERT_SEQ
+#: of 128 does not fit it (in JAX either).
+TINY_BERT_SEQ = 64
+
+
+def _saved(torch, ckpt, step: int, sharded: bool = False):
+    """The items of committed step ``step`` under ``ckpt``: a sharded
+    format's one shard's value, or the single-process format's files."""
+    import os
+
+    d = os.path.join(ckpt, str(step))
+    if sharded:
+        return torch.load(os.path.join(d, "shard-0.pt"),
+                          weights_only=True)["value"]
+    return {n[:-3]: torch.load(os.path.join(d, n), weights_only=True)
+            for n in sorted(os.listdir(d)) if n.endswith(".pt")}
+
+
+def _same_state(torch, a, b) -> bool:
+    """Whether two checkpoint trees are bit-identical."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(_same_state(torch, a[k], b[k]) for k in a))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def workload_resumes(torch, workdir):
+    """The kill-and-resume contract of the JAX mains of configs 1, 3 and 4
+    (they checkpoint every 20 or 10 steps and install no SIGTERM handler):
+    each entry point (``python -m ...workloads.mnist`` at JAX's defaults,
+    ``bert_pretrain`` and ``resnet_dp`` tiny) as processes on the card.
+    Per path, an uninterrupted run and a run killed (SIGKILL, exit -9)
+    once its save of step MNIST_KILL_AT / WORKLOAD_KILL_AT has committed,
+    all started together; then each killed run's restart
+    (``TRAININGJOB_REPLICA_RESTARTCOUNT=1``), BERT's and ResNet's
+    together, MNIST's alone (its start-to-first-step time is the recovery
+    figure of config 1).  The restart resumes at the committed step, its
+    loss lines equal the uninterrupted run's, and its last checkpoint
+    (parameters, optimizer state and, for ResNet, the statistics) equals
+    the uninterrupted run's bit for bit.  BERT runs twice: on one card,
+    and with a coordinator at world 1 (a group of one on NCCL, the mesh
+    path, a sharded checkpoint).  Returns the three phases' results."""
+    import os
+
+    bert_code = trainer_code("bert_pretrain")
+    codes = {"mnist": trainer_code("mnist"), "bert": bert_code,
+             "bert_mesh": bert_code, "resnet": trainer_code("resnet_dp")}
+    envs = {"mnist": {"MNIST_STEPS": str(MNIST_STEPS)},
+            "bert": {"BERT_CONFIG": "tiny", "BERT_SEQ": str(TINY_BERT_SEQ),
+                     "BERT_STEPS": str(WORKLOAD_STEPS)},
+            "bert_mesh": {"BERT_CONFIG": "tiny",
+                          "BERT_SEQ": str(TINY_BERT_SEQ),
+                          "BERT_STEPS": str(WORKLOAD_STEPS)},
+            "resnet": {"RESNET_CONFIG": "tiny",
+                       "RESNET_STEPS": str(WORKLOAD_STEPS)}}
+    kill_at = {"mnist": MNIST_KILL_AT}
+    steps = {"mnist": MNIST_STEPS}
+
+    def env_of(path, ckpt, **extra):
+        env = dict(os.environ)
+        env.update({**envs[path], "TRAININGJOB_CHECKPOINT_DIR": ckpt,
+                    **extra})
+        if path == "bert_mesh":
+            env.update({"TRAININGJOB_COORDINATOR_ADDRESS":
+                        f"127.0.0.1:{free_port()}",
+                        "TRAININGJOB_NUM_PROCESSES": "1"})
+        return env
+
+    def ckpt(path, run):
+        return os.path.join(workdir, f"{path}_{run}")
+
+    runs, launches = {}, {}
+
+    def record(path, run, rc, lines, counts, secs):
+        runs.setdefault(path, {})[run] = {"rc": rc, "wall_s": secs}
+        if counts is not None:
+            launches.setdefault(path, []).append(counts)
+        return rc, lines
+
+    t0 = time.perf_counter()
+    out = {}
+    with contextlib.ExitStack() as stack:
+        joins = {}
+        for path in codes:
+            k = kill_at.get(path, WORKLOAD_KILL_AT)
+            joins[(path, "uninterrupted")] = stack.enter_context(
+                trainer_beside(env_of(path, ckpt(path, "whole")),
+                               codes[path]))
+            joins[(path, "killed")] = stack.enter_context(trainer_beside(
+                env_of(path, ckpt(path, "kill"),
+                       TRAININGJOB_KILL_AT_STEP=str(k)), codes[path]))
+        for (path, run), join in joins.items():
+            out[(path, run)] = record(path, run, *join(600))
+    first_wave_s = time.perf_counter() - t0
+    for path in codes:
+        k = kill_at.get(path, WORKLOAD_KILL_AT)
+        n = steps.get(path, WORKLOAD_STEPS)
+        rc, lines = out[(path, "uninterrupted")]
+        expect(rc == 0 and any(ln.startswith(f"step {n}/{n} loss")
+                               for ln in lines),
+               f"{path} uninterrupted run exited {rc}", lines)
+        rc, lines = out[(path, "killed")]
+        expect(rc == -9 and f"killed at step {k}" in lines
+               and not any(ln.startswith(f"step {n}/{n}") for ln in lines),
+               f"{path} killed run exited {rc}", lines)
+
+    def restart(path):
+        return run_trainer(env_of(path, ckpt(path, "kill"),
+                                  TRAININGJOB_REPLICA_RESTARTCOUNT="1"),
+                           600, code=codes[path])
+
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        joins = {path: stack.enter_context(trainer_beside(
+            env_of(path, ckpt(path, "kill"),
+                   TRAININGJOB_REPLICA_RESTARTCOUNT="1"), codes[path]))
+            for path in ("bert", "bert_mesh", "resnet")}
+        for path, join in joins.items():
+            out[(path, "restarted")] = record(path, "restarted", *join(600))
+    second_wave_s = time.perf_counter() - t0
+    out[("mnist", "restarted")] = record("mnist", "restarted",
+                                         *restart("mnist"))
+
+    def loss_lines(lines):
+        return [ln for ln in lines if ln.startswith("step ")
+                and " loss " in ln]
+
+    results = {}
+    for path in codes:
+        k = kill_at.get(path, WORKLOAD_KILL_AT)
+        n = steps.get(path, WORKLOAD_STEPS)
+        rc, lines = out[(path, "restarted")]
+        whole = loss_lines(out[(path, "uninterrupted")][1])
+        after = loss_lines(lines)
+        expect(rc == 0 and after == [ln for ln in whole
+                                     if int(ln.split()[1].split("/")[0]) > k]
+               and after, f"{path} restart: loss lines {after} vs {whole}",
+               lines)
+        if path == "mnist":
+            done = line_fields(lines, "done:")
+            expect(done.get("steps") == str(n - k)
+                   and done.get("restart_count") == "1",
+                   f"mnist restart's done line {done}", lines)
+            where = ("worker", "0")
+        elif path == "resnet":
+            expect(f"resumed at step {k}" in lines
+                   and line_fields(lines, "done:").get("restart_count")
+                   == "1", "resnet restart did not resume", lines)
+            where = ("worker", "0")
+        else:
+            expect(f"resumed at step {k}" in lines,
+                   f"{path} restart did not resume", lines)
+            where = ("bert",)
+        sharded = path == "bert_mesh"
+        a, b = (_saved(torch, os.path.join(ckpt(path, run), *where), n,
+                       sharded) for run in ("whole", "kill"))
+        expect(_same_state(torch, a, b),
+               f"{path}: the restart's step {n} differs from the "
+               f"uninterrupted run's", lines)
+        if path == "mnist":
+            first = float(whole[0].split()[-1])
+            last = float(whole[-1].split()[-1])
+            expect(last < first, f"mnist: loss {first} -> {last}", whole)
+        counts = launches.get(path, [])
+        expect(len(counts) == 2, f"{path}: launches of {len(counts)} runs",
+               lines)
+        total = {key: sum(c[key] for c in counts) for key in counts[0]}
+        no_launches(path, total)
+        results[path] = {"steps": n, "killed_after_committed_step": k,
+                         "runs": runs[path], "loss_lines": whole,
+                         "restart_loss_lines": after,
+                         "bit_identical_after_resume": True,
+                         "launches": total,
+                         "first_wave_s": first_wave_s}
+        if path != "mnist":
+            results[path]["restart_wave_s"] = second_wave_s
+    timing = line_fields(out[("mnist", "restarted")][1], "recovery_timing")
+    split = {key: float(timing[key]) for key in
+             ("imports_s", "init_s", "setup_s", "restore_s", "first_step_s",
+              "main_to_first_step_s") if key in timing}
+    split["process_start_to_first_step_s"] = (
+        split.get("imports_s", float("nan"))
+        + split.get("main_to_first_step_s", float("nan")))
+    results["mnist"]["restart_timing"] = split
+    results["mnist"]["config"] = {"hidden": 256, "batch": 128, "lr": 1e-3}
+    results["bert"]["mesh"] = results.pop("bert_mesh")
+    results["bert"]["mesh"]["backend"] = "nccl"
+    for path in ("bert", "resnet"):
+        results[path]["config"] = "tiny"
+    results["bert"]["launches"] = {
+        key: results["bert"]["launches"][key]
+        + results["bert"]["mesh"]["launches"][key]
+        for key in results["bert"]["launches"]}
+    return results
+
+
 def tiny_train_runs(tiny_train):
     """The per-policy results of ``tiny_train_equivalence``."""
     return [v for v in tiny_train.values()
@@ -2526,14 +3018,18 @@ def main() -> int:
 
     from trainingjob_operator_tpu_torch import ops
     from trainingjob_operator_tpu_torch.models import (
+        bert,
         decode,
         llama,
         moe,
         moe_decode,
+        resnet,
     )
     from trainingjob_operator_tpu_torch.ops import _build, fused
     from trainingjob_operator_tpu_torch.workloads import (
+        bert_pretrain,
         llama_elastic,
+        resnet_dp,
         serve,
         train,
     )
@@ -2648,6 +3144,14 @@ def main() -> int:
     emit({"phase": "sp_7b_width", "device": name, "nvidia_smi": smi,
           **sp_run})
     torch.cuda.empty_cache()
+    bert_run = bert_base(torch, bert, bert_pretrain, train)
+    emit({"phase": "bert_base", "device": name, "nvidia_smi": smi,
+          **bert_run})
+    torch.cuda.empty_cache()
+    resnet_run = resnet50(torch, resnet, resnet_dp, train)
+    emit({"phase": "resnet50", "device": name, "nvidia_smi": smi,
+          **resnet_run})
+    torch.cuda.empty_cache()
 
     sink = LineSink()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2677,6 +3181,10 @@ def main() -> int:
                                  workdir)
         emit({"phase": "moe_resume", "device": name, "nvidia_smi": smi,
               **moe_resumed})
+        resumes = workload_resumes(torch, workdir)
+        for phase in ("mnist", "bert", "resnet"):
+            emit({"phase": f"{phase}_resume", "device": name,
+                  "nvidia_smi": smi, **resumes[phase]})
     finally:
         sink.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2689,7 +3197,8 @@ def main() -> int:
              tiny,
              *tiny_train_runs(tiny_train), tiny_moe["serve"],
              *tiny_train_runs(tiny_moe["train"]), moe_served, moe_generated,
-             moe_trained, moe_sharded, moe_resumed]
+             moe_trained, moe_sharded, moe_resumed, bert_run, resnet_run,
+             *resumes.values()]
     launches = {k: sum(p["launches"][k] for p in paths)
                 for k in ops.launch_counts()}
     fma = {key: launches[key] - launches[f"{key}_wgmma"]

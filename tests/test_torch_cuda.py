@@ -14,10 +14,13 @@ import pytest
 import torch
 
 from trainingjob_operator_tpu_torch import ops
-from trainingjob_operator_tpu_torch.models import decode, llama
+from trainingjob_operator_tpu_torch.models import bert, decode, llama, resnet
 from trainingjob_operator_tpu_torch.ops import fused
 from trainingjob_operator_tpu_torch.workloads import (
+    bert_pretrain,
     llama_elastic,
+    mnist,
+    resnet_dp,
     serve,
     train,
 )
@@ -357,3 +360,83 @@ def test_the_snapshot_has_landed_when_save_returns(dev, tmp_path,
     assert torch.equal(seen["host"], want)
     got = torch.load(tmp_path / "1" / "params.pt", weights_only=True)
     assert torch.equal(got["x"], want)
+
+
+@pytest.fixture
+def no_tf32(dev):
+    """TF32 off for cuBLAS and cuDNN (cuDNN's convolutions default to it),
+    restored after: a TF32 product would be 1e-3 off the CPU's f32."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield dev
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _no_kernel_launched():
+    """The three workloads reach no TPU kernel in the reference, and their
+    paths launch none of the port's."""
+    assert all(n == 0 for n in ops.launch_counts().values()), \
+        ops.launch_counts()
+
+
+def test_tiny_mnist_steps_on_the_card_match_the_cpu(no_tf32):
+    images, labels = mnist.synthetic_mnist(
+        torch.Generator().manual_seed(1), 4 * 32, 32)
+    init = mnist.init_params(32, torch.Generator().manual_seed(0), "cpu")
+    losses = {}
+    for where in ("cpu", "cuda"):
+        params = {k: v.to(where, copy=True).requires_grad_(True)
+                  for k, v in init.items()}
+        step = mnist.make_step(params, train.AdamW(
+            params, 1e-3, b2=0.999, weight_decay=0.0))
+        ops.reset_launch_counts()
+        losses[where] = [float(step(x.to(where), y.to(where)))
+                         for x, y in zip(images, labels)]
+        _no_kernel_launched()
+    torch.testing.assert_close(losses["cuda"], losses["cpu"], rtol=1e-4,
+                               atol=0)
+
+
+def test_tiny_bert_steps_on_the_card_match_the_cpu(no_tf32):
+    cfg = bert.BertConfig(**{**bert.BertConfig.tiny().__dict__,
+                             "dtype": "float32"})
+    init = bert.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    losses = {}
+    for where in ("cpu", "cuda"):
+        params = train.trainable_copy(init, where)
+        step = bert_pretrain.make_step(params, cfg, lr=1e-3)
+        ops.reset_launch_counts()
+        losses[where] = [float(step({k: v.to(where) for k, v in
+                                     bert_pretrain.batch_at(
+                                         i, 4, 32, cfg.vocab_size).items()}))
+                         for i in range(3)]
+        _no_kernel_launched()
+    torch.testing.assert_close(losses["cuda"], losses["cpu"], rtol=1e-4,
+                               atol=0)
+
+
+def test_tiny_resnet_steps_on_the_card_match_the_cpu(no_tf32):
+    cfg = resnet.ResNetConfig(**{**resnet.ResNetConfig.tiny().__dict__,
+                                 "dtype": "float32"})
+    init, init_stats = resnet.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for where in ("cpu", "cuda"):
+        params = train.trainable_copy(init, where)
+        stats = train.tree_map(lambda x: x.to(where, copy=True), init_stats)
+        step = resnet_dp.make_step(params, stats, cfg, lr=0.1,
+                                   channels_last=where == "cuda")
+        ops.reset_launch_counts()
+        losses = []
+        for i in range(3):
+            images, labels = resnet_dp.batch_at(i, 8, 32, cfg.num_classes)
+            losses.append(float(step(images.to(where), labels.to(where))))
+        _no_kernel_launched()
+        out[where] = (losses, [x.cpu() for x in train.tree_leaves(stats)])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=0)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -41,7 +41,7 @@ import numpy as np
 import pytest
 import torch
 
-from trainingjob_operator_tpu.data import write_tokens
+from trainingjob_operator_tpu_torch.data import write_tokens
 from trainingjob_operator_tpu_torch.models import llama as tllama
 from trainingjob_operator_tpu_torch.parallel import sharding
 from trainingjob_operator_tpu_torch.workloads import rendezvous

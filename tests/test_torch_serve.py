@@ -66,6 +66,21 @@ def _random_cache(jc, slots, max_len, seed=4):
             {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())})
 
 
+class _RequestSink:
+    """A telemetry emitter that records the request plane's terminal
+    records, as the audit ledger would receive them."""
+
+    def __init__(self):
+        self.records = []
+
+    def emit_request(self, outcome, rid, epoch, hwm, **fields):
+        self.records.append((outcome, epoch, rid, hwm,
+                             sorted(fields.items())))
+
+    def emit_serve(self, **_):
+        pass
+
+
 def _close(got, want):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
@@ -232,6 +247,46 @@ class TestDecodeService:
         with pytest.raises(ValueError, match="multiple of prefill_chunk"):
             tserve.DecodeService(tp, tc, max_len=max_len,
                                  prefill_chunk=chunk, device="cpu")
+
+    def test_drain_abort_matches_jax_records(self, setup):
+        jc, tc, jp, tp = setup
+        sinks = []
+
+        def drive(svc):
+            sink = _RequestSink()
+            svc.emitter = sink
+            sinks.append(sink)
+            for i, (prompt, n) in enumerate([([1, 2, 3, 4], 3),
+                                             ([5, 6, 7], 12),
+                                             ([8, 9], 12), ([3, 1], 4),
+                                             ([2, 2, 2], 6)]):
+                svc.submit(prompt, n, now=float(i))
+            for t in range(5):
+                svc.step(now=10.0 + t)
+            busy = sum(1 for sl in svc.slots if sl.state != 0)
+            evicted = svc.drain_abort(now=20.0)
+            assert all(sl.state == 0 and sl.req is None for sl in svc.slots)
+            assert not svc.queue and busy > 0
+            return [r.rid for r in evicted], svc.stats(now=21.0)
+
+        want = drive(jserve.DecodeService(jp, jc, slots=2, prefill_chunk=4))
+        got = drive(tserve.DecodeService(tp, tc, slots=2, prefill_chunk=4,
+                                         device="cpu"))
+        assert got[0] == want[0] and len(got[0]) >= 3
+        # The epoch names the process and the service object: it differs.
+        assert ([r[:1] + r[2:] for r in sinks[1].records]
+                == [r[:1] + r[2:] for r in sinks[0].records])
+        assert [r[0] for r in sinks[1].records].count("evicted") == \
+            len(got[0])
+        for key in ("active_slots", "queue_depth", "completed_total",
+                    "rejected_total", "tokens_total", "steps"):
+            assert got[1][key] == want[1][key]
+        assert got[1]["active_slots"] == 0 and got[1]["queue_depth"] == 0
+
+    def test_stats_takes_a_clock(self, setup):
+        _, tc, _, tp = setup
+        svc = tserve.DecodeService(tp, tc, slots=2, device="cpu")
+        assert svc.stats(now=5.0) == svc.stats()
 
     def test_sliding_window_and_queue_full(self, setup):
         _, tc, _, tp = setup

@@ -37,7 +37,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_multiprocess import _close, _Sink, _train  # noqa: E402
-from trainingjob_operator_tpu.data import write_tokens  # noqa: E402
+from trainingjob_operator_tpu_torch.data import write_tokens  # noqa: E402
 from trainingjob_operator_tpu.models import llama as jllama  # noqa: E402
 from trainingjob_operator_tpu.parallel import mesh as jmesh  # noqa: E402
 from trainingjob_operator_tpu_torch import constants as tconst  # noqa: E402

@@ -1,10 +1,11 @@
 """Memory-mapped token datasets with stateless deterministic sampling.
 
-Own copy of the JAX package's ``data/tokens.py`` reader (that module is
-numpy-only, but the port imports nothing of the JAX package).  Reads the
-same ``.tokens`` files: a 16-byte header -- magic ``b"AITJTOK1"``, then
-uint32 dtype code (2 = uint16, 4 = uint32) and uint32 vocab size --
-followed by the flat token stream.
+Own copy of the JAX package's ``data/tokens.py`` reader and writer (that
+module is numpy-only, but the port imports nothing of the JAX package).
+Reads and writes (``write_tokens``) the same ``.tokens`` files: a
+16-byte header -- magic ``b"AITJTOK1"``, then uint32 dtype code (2 =
+uint16, 4 = uint32) and uint32 vocab size -- followed by the flat token
+stream.
 
 Sampling is stateless: ``batch(step)`` derives every row's window offset
 from ``(seed, step, row)`` with the same splitmix-style hash as the JAX
@@ -13,6 +14,7 @@ package, so both packages draw byte-identical batches from one file.
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Optional
 
@@ -20,7 +22,33 @@ import numpy as np
 
 MAGIC = b"AITJTOK1"
 _DTYPES = {2: "uint16", 4: "uint32"}
+_CODES = {v: k for k, v in _DTYPES.items()}
 HEADER_BYTES = 16
+
+
+def write_tokens(path: str, tokens, vocab_size: Optional[int] = None) -> int:
+    """Serialize a 1-D int array to the ``.tokens`` format; returns the
+    count.  The ids are stored as uint16 when the vocab fits (<= 65536),
+    else uint32; a negative id, or one at or past ``vocab_size`` (which a
+    narrower dtype would wrap into a wrong token), is refused.  The file
+    is written under a temporary name and committed by ``os.replace``, so
+    a reader never sees half of it."""
+    arr = np.asarray(tokens)
+    if arr.ndim != 1:
+        raise ValueError(f"tokens must be 1-D, got shape {arr.shape}")
+    top = int(arr.max()) if arr.size else 0
+    if arr.size and int(arr.min()) < 0:
+        raise ValueError(f"negative token id {int(arr.min())}")
+    hi = int(vocab_size) if vocab_size else top + 1
+    if top >= hi:
+        raise ValueError(f"token id {top} >= vocab_size {hi}")
+    dtype = "uint16" if hi <= 65536 else "uint32"
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(MAGIC + struct.pack("<II", _CODES[dtype], hi))
+        f.write(arr.astype(dtype).tobytes())
+    os.replace(tmp, path)
+    return int(arr.size)
 
 
 class TokenDataset:

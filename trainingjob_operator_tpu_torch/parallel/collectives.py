@@ -21,6 +21,11 @@ hand, each as a ``torch.autograd.Function``:
   tokens, so the sum is the global mean), with an identity backward:
   every rank's graph gets the gradient of its own tokens, and the leaves'
   collectives sum them.
+- ``all_reduce_data`` -- replicated leaves' gradients (MNIST's and
+  ResNet's data parallelism) summed over the summed axes in one bucket.
+- ``psum_data`` -- a statistic summed over the summed axes whose
+  gradient is summed over them as well: the sums of ResNet's batch norm
+  over the global batch, which every rank's loss reads.
 - ``ppermute_next`` / ``ppermute_prev`` -- a block shifted one hop around
   the ring of an axis (JAX's ``ppermute`` over ``ring_permutation``): one
   ``batch_isend_irecv`` of a send to the next rank and a receive from the
@@ -238,6 +243,40 @@ class _SumOverData(torch.autograd.Function):
 def sum_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` summed over the mesh's summed axes; identity backward."""
     return _SumOverData.apply(x, mesh)
+
+
+def all_reduce_data(tensors: Sequence[torch.Tensor], mesh) -> None:
+    """Each tensor (no autograd) summed in place over the mesh's summed
+    axes: one all-reduce an axis of their concatenation, the bucket of a
+    data-parallel step's replicated gradients."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    for axis in mesh.summed_axes():
+        flat = _all_reduce(flat, mesh.group(axis), fresh=True)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
+class _PsumData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        for axis in mesh.summed_axes():
+            x = _all_reduce(x, mesh.group(axis))
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        for axis in ctx.mesh.summed_axes():
+            grad = _all_reduce(grad, ctx.mesh.group(axis))
+        return grad, None
+
+
+def psum_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the mesh's summed axes, whose gradient is summed
+    over them too: every rank's share of the loss reads the sum (a batch
+    statistic of the global batch), so each rank's input gets the
+    gradient of all the shares."""
+    return _PsumData.apply(x, mesh)
 
 
 def ring_permutation(axis_size: int,

@@ -243,7 +243,7 @@ class DecodeService:
         self.step_count += 1
         if (self.emitter is not None
                 and self.step_count % EMIT_EVERY == 0):
-            s = self.stats()
+            s = self.stats(now)
             self.emitter.emit_serve(
                 queue_depth=s["queue_depth"],
                 active_slots=s["active_slots"], slots=s["slots"],
@@ -380,9 +380,32 @@ class DecodeService:
             tpot_ms=req.tpot_ms, tokens=len(req.tokens),
             arrival=req.arrival, phase_ms=req.phase_attribution(now))
 
+    def drain_abort(self, now: Optional[float] = None) -> List[Request]:
+        """Abandon all in-flight work at a drain, scale-in or restart
+        boundary (JAX's ``drain_abort``): the queued requests, then the
+        slotted ones, each file an ``evicted`` terminal record, so the
+        audit ledger never counts them as lost; the slots are freed and
+        the evicted requests returned for a router to retry elsewhere."""
+        now = time.time() if now is None else now
+        evicted: List[Request] = []
+        while self.queue:
+            evicted.append(self.queue.popleft())
+        for sl in self.slots:
+            if sl.state != FREE and sl.req is not None:
+                evicted.append(sl.req)
+                sl.state = FREE
+                sl.req = None
+        for req in evicted:
+            req.mark("evicted", now)
+            self._emit_request(req, "evicted", now)
+        return evicted
+
     # -- introspection --------------------------------------------------------
 
-    def stats(self) -> Dict[str, Any]:
+    def stats(self, now: Optional[float] = None) -> Dict[str, Any]:
+        """The plane's counters and latency quantiles; ``now`` is the
+        caller's clock, taken as JAX's ``stats`` takes it."""
+        now = time.time() if now is None else now
         lat = sorted(self._latency_ms)
 
         def q(p: float) -> float:

@@ -5,7 +5,9 @@ Gradient accumulation (``accumulated_value_and_grad``), batch geometry
 (``round_global_batch``), the batch sources (``build_batch_sources``),
 ``default_remat``, ``mean_eval_fn``, ``throughput_line``, the AdamW of
 ``workloads/llama_elastic.py`` in optax's order (``AdamW``, whose state is
-a tree ``{"count", "mu", "nu"}``), checkpoints (``CheckpointState``: step
+a tree ``{"count", "mu", "nu"}``), optax's SGD with momentum (``SGD``,
+state ``{"trace"}``), the crash injection of the kill-and-resume
+contract (``kill_at_step``), checkpoints (``CheckpointState``: step
 directories, the resume image and their fallback ladder), the preemption
 handler (``GracefulShutdown``), the step profiler and telemetry
 (``StepProfiler``), the step loop (``run_elastic_loop``, run by every
@@ -176,6 +178,48 @@ def adamw_state_from_numpy(opt_state, device="cuda") -> Dict[str, Any]:
     return {"count": int(np.asarray(adam.count)),
             "mu": tree_map(to_torch, adam.mu),
             "nu": tree_map(to_torch, adam.nu)}
+
+
+class SGD:
+    """``optax.sgd(lr, momentum)`` (``workloads/resnet_dp.py:64``): the
+    trace ``t = g + momentum * t``, then ``p += -lr * t``.  The state is
+    the tree ``self.state = {"trace": tree}`` (zeros like the parameters
+    at the start; ``sgd_state_from_numpy`` converts optax's), updated in
+    place with the parameters, as ``AdamW``'s."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9,
+                 state: Optional[Dict[str, Any]] = None):
+        self.lr, self.momentum = float(lr), float(momentum)
+        if state is None:
+            state = {"trace": tree_map(lambda p: torch.zeros_like(
+                p, requires_grad=False), params)}
+        self.state = state
+
+    @torch.no_grad()
+    def step(self, params, grads) -> None:
+        for p, g, t in zip(tree_leaves(params), tree_leaves(grads),
+                           tree_leaves(self.state["trace"])):
+            t.mul_(self.momentum).add_(g)
+            p.add_(t, alpha=-self.lr)
+
+
+def sgd_state_from_numpy(opt_state, device="cuda",
+                         convert: Optional[Callable] = None
+                         ) -> Dict[str, Any]:
+    """optax's ``sgd(lr, momentum)`` state (its leaves as numpy) -> the
+    ``SGD`` state tree: the chain's ``TraceState`` trace, converted to the
+    port's parameter tree by ``convert`` (a model's ``params_from_numpy``
+    for the parameters; default f32 tensors of a tree of dicts) on
+    ``device``."""
+    from trainingjob_operator_tpu_torch import resolve_device
+
+    dev = resolve_device(device)
+    trace = next(s for s in opt_state if hasattr(s, "trace")).trace
+    if convert is None:
+        def convert(tree):
+            return tree_map(lambda x: torch.from_numpy(
+                np.array(x, dtype=np.float32)).to(dev), tree)
+    return {"trace": convert(trace)}
 
 
 def _ensure_workload_logging() -> None:
@@ -1281,6 +1325,25 @@ def run_elastic_loop(*, step_fn: Callable[[torch.Tensor], torch.Tensor],
             max(time.time() - t_start, 1e-9))
     _maybe_export_trace(tracer)
     return loss, t_start
+
+
+#: Crash injection of the port's trainers (the JAX package has none, so
+#: it is not among ``constants``' shared names): a trainer SIGKILLs itself
+#: once the save of this step has committed (a node lost right after a
+#: checkpoint).
+KILL_AT_STEP_ENV = "TRAININGJOB_KILL_AT_STEP"
+
+
+def kill_at_step(state: "CheckpointState", step: int) -> None:
+    """Crash injection for the kill-and-resume contract: where
+    ``TRAININGJOB_KILL_AT_STEP`` names ``step``, wait for the save of
+    ``step`` to commit, then SIGKILL this process (exit -9: no handler, no
+    cleanup, as a lost node).  A restart resumes from that step."""
+    if os.environ.get(KILL_AT_STEP_ENV, "") != str(step):
+        return
+    state.finalize()
+    print(f"killed at step {step}", flush=True)
+    os.kill(os.getpid(), signal.SIGKILL)
 
 
 def push_resume_record(restore_s: float, fallback: str = "") -> None:
