@@ -9,8 +9,9 @@ Phases, each printing one JSON line (any failed check raises, and the
 script exits non-zero):
 
 1. device: the card's name and power limit (the ``nvidia-smi`` line is
-   printed as it is), then the build of every kernel under ``csrc/``
-   (set-up time).
+   printed as it is), then the build of every kernel under ``csrc/`` into
+   the package's ``_build/`` (set-up time, ``build_s``), which every later
+   process phase but 10a finds there.
 2. kernel_checks: each kernel against its plain PyTorch version on the
    card at the serving and training paths' full-width shapes, with the
    tolerance, the kernel's time, the plain version's time, the one-call
@@ -97,6 +98,22 @@ script exits non-zero):
    ``generate`` on the checkpoint gives the greedy tokens of the saved
    parameters.  Prints each run's ``recovery_timing`` (restore_s,
    first_step_s) and ``ckpt_stall``.
+10a. kernel_cache_restart_124m: the restart as a fresh container sees
+   it: a copy of the package without ``_build/`` (``PYTHONPATH`` and the
+   working directory point at it), an empty
+   ``TRAININGJOB_COMPILE_CACHE_DIR``, a copy of phase 10's committed step
+   for each of three restarts to step CACHE_RESTART_STEPS (cold cache,
+   overlapped; warm, overlapped; warm with
+   ``TRAININGJOB_RESUME_OVERLAP=0``), and an ``nvcc`` shim on
+   ``PATH`` that logs its calls.  Gates: the cold restart compiles every
+   ``.cu`` once into the cache and its restore overlaps the build
+   (``resume_phases_wall_s`` < ``restore_s + compile_s``); the warm ones
+   compile nothing and load the cached library (``kernels: loaded
+   ... (cache hit)``); ``resume_overlap`` 1, 1, 0; losses equal phase 10's
+   uninterrupted run's bit for bit; launches as ``train_launches`` counts
+   them.  Per restart: process start -> first step, ``restore_s``,
+   ``compile_s``, ``resume_phases_wall_s``, ``first_step_s``, the
+   ``kernels:`` line and the launches.
 11. telemetry: a 6-step 124M run with telemetry, the step profiler and
    the span trace on: one record per step, ``hbm_bytes`` on every second,
    ``ckpt_ms`` on the record after the save, a ``torch.profiler`` Chrome
@@ -117,7 +134,8 @@ script exits non-zero):
    the peak within RESIZE_PEAK_GIB of phase 9's; the resize's timings,
    the step time before and after, the first step after.
 14. resize_ladder_124m: the trainer's entry point at phase 10's settings
-   with a coordinator and the resize channel, the parent publishing
+   (but LADDER_STEPS = 6 steps) with a coordinator and the resize
+   channel, the parent publishing
    generation 1 after the first ``step`` line: rung ``live`` (rc 0);
    fault ``barrier``: ``checkpoint`` (rc 143), then a restart born into
    generation 1 resumes; ``barrier,persist``: ``checkpoint`` then
@@ -188,7 +206,7 @@ Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
 dK/dV, with their launches on the paths driven (the 7B phases 5-9b and 13,
-the 124M trainer of phases 10-11 and 14 and the Mixtral-width phases
+the 124M trainer of phases 10-11 (10a too) and 14 and the Mixtral-width phases
 15-16a run the bf16 tensor-core kernels, the tiny fp32 phases 3-4a and 12
 and the tiny MoE trainer of phase 17 (head dim 16) the f32-FMA ones; a
 trainer process reports its launches when it returns) and,
@@ -1234,15 +1252,17 @@ class LineSink:
 
 
 def run_trainer(env, timeout: float, sigterm_after: str = "",
-                code: str = TRAINER):
+                code: str = TRAINER, cwd=ROOT, stamps=None):
     """(exit code, output lines, launches or None, seconds) of one trainer
-    process (``code``: ``trainer_code``'s); SIGTERM once a line starts
-    with ``sigterm_after``; killed after ``timeout`` seconds."""
+    process (``code``: ``trainer_code``'s) started in ``cwd``; SIGTERM
+    once a line starts with ``sigterm_after``; killed after ``timeout``
+    seconds.  ``stamps``, a list, gets each line's seconds since the
+    process was started."""
     import signal
     import threading
 
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=cwd,
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     timer = threading.Timer(timeout, proc.kill)
@@ -1250,6 +1270,8 @@ def run_trainer(env, timeout: float, sigterm_after: str = "",
     lines = []
     try:
         for line in proc.stdout:
+            if stamps is not None:
+                stamps.append(time.perf_counter() - t0)
             lines.append(line.rstrip("\n"))
             if sigterm_after and line.startswith(sigterm_after):
                 proc.send_signal(signal.SIGTERM)
@@ -1355,6 +1377,12 @@ def expect(ok: bool, what: str, lines) -> None:
 #: the line after which the preempted run gets SIGTERM.
 RESUME_STEPS, RESUME_CKPT_EVERY = 12, 2
 SIGTERM_AFTER = "step 4/"
+#: Where resume_124m copies the preempted run's checkpoint directory, under
+#: the phases' work directory.
+COMMITTED_COPY = "committed"
+#: Steps of kernel_cache_restart_124m's restarts: from the committed step
+#: (4 or 5) on, 3-4 steps and 2 saves each.
+CACHE_RESTART_STEPS = 8
 
 
 def resume_124m(torch, llama, decode, train, sink, workdir):
@@ -1382,8 +1410,14 @@ def resume_124m(torch, llama, decode, train, sink, workdir):
         return env
 
     def run(job, ckpt, steps, sigterm_after="", **extra):
-        return record(job, *run_trainer(env_of(job, ckpt, steps, **extra),
-                                        300, sigterm_after))
+        stamps = []
+        out = record(job, *run_trainer(env_of(job, ckpt, steps, **extra),
+                                       300, sigterm_after, stamps=stamps))
+        first = [t for t, ln in zip(stamps, out[1])
+                 if ln.endswith("(first after resume)")]
+        if first:
+            runs[job]["process_to_first_step_s"] = first[0]
+        return out
 
     def record(job, rc, lines, counts, secs):
         if counts is not None:
@@ -1415,6 +1449,9 @@ def resume_124m(torch, llama, decode, train, sink, workdir):
            f"preempted run exited {rc}", lines)
     k = train.committed_steps(os.path.join(ckpt, "llama"))[0]
     expect(k >= 4, f"preempted run committed step {k}", lines)
+    # The committed step as a restart finds it, for
+    # kernel_cache_restart_124m.
+    shutil.copytree(ckpt, os.path.join(workdir, COMMITTED_COPY))
 
     def check_resumed(job, lines, step, last, first=None):
         """Resumed at ``step`` and trained to ``last``, with the losses of
@@ -1484,6 +1521,131 @@ def resume_124m(torch, llama, decode, train, sink, workdir):
             "fault_corrupt_latest_restored": prev, "runs": runs,
             "bit_identical_after_resume": True,
             "generate_tokens": want_tokens,
+            "launches": {key: sum(c[key] for c in launches)
+                         for key in launches[0]}}
+
+
+#: kernel_cache_restart_124m's restarts, in order: (name, the restart's
+#: TRAININGJOB_RESUME_OVERLAP).  The first finds the cache empty.
+CACHE_RESTARTS = (("cold", "1"), ("warm", "1"), ("warm_serial", "0"))
+
+
+def kernel_cache_restart_124m(sink, workdir, resumed, want, nvcc: str):
+    """The 124M trainer's restart as a fresh container sees it: a copy of
+    the package without ``_build/`` (``PYTHONPATH`` and the working
+    directory point at it), an empty job kernel cache
+    (``TRAININGJOB_COMPILE_CACHE_DIR``) and, for each restart of
+    ``CACHE_RESTARTS``, a fresh copy of resume_124m's committed step.  An
+    ``nvcc`` shim on ``PATH`` logs every call before running ``nvcc``.
+    Gates: the cold restart builds into the cache (every ``.cu`` compiled
+    once, one link) and overlaps the build with the restore
+    (``resume_phases_wall_s`` < ``restore_s + compile_s``); the warm ones
+    compile nothing and load the cached library; ``resume_overlap`` is 1,
+    1, 0; the losses equal the uninterrupted run's bit for bit; the
+    launches are ``train_launches``'."""
+    import os
+
+    work = Path(workdir)
+    pkg_root = work / "fresh_container"
+    shutil.copytree(ROOT / "trainingjob_operator_tpu_torch",
+                    pkg_root / "trainingjob_operator_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    cache = work / "kernel_cache"
+    cache.mkdir()
+    shim = work / "nvcc_shim"
+    shim.mkdir()
+    calls = work / "nvcc_calls.log"
+    calls.touch()
+    (shim / "nvcc").write_text(f'#!/bin/sh\necho "$*" >> "{calls}"\n'
+                               f'exec "{nvcc}" "$@"\n')
+    (shim / "nvcc").chmod(0o755)
+    n_sources = len(list((pkg_root / "trainingjob_operator_tpu_torch"
+                          / "csrc").glob("*.cu")))
+    k, N = resumed["preempted_at_committed_step"], CACHE_RESTART_STEPS
+    runs, launches = {}, []
+    for name, overlap in CACHE_RESTARTS:
+        ckpt = work / f"cache_{name}"
+        shutil.copytree(work / COMMITTED_COPY, ckpt)
+        env = dict(os.environ)
+        env.update({"LLAMA_CONFIG": "124m", "LLAMA_SEQ": "1024",
+                    "LLAMA_BATCH": "8", "LLAMA_STEPS": str(N),
+                    "LLAMA_CKPT_EVERY": str(RESUME_CKPT_EVERY),
+                    "TRAININGJOB_CHECKPOINT_DIR": str(ckpt),
+                    "TRAININGJOB_COMPILE_CACHE_DIR": str(cache),
+                    "TRAININGJOB_RESUME_OVERLAP": overlap,
+                    "TRAININGJOB_TELEMETRY_ADDR": sink.address,
+                    "TRAININGJOB_NAMESPACE": "smoke",
+                    "TRAININGJOB_NAME": f"cache_{name}",
+                    "PYTHONPATH": str(pkg_root),
+                    "PATH": f"{shim}{os.pathsep}{env.get('PATH', '')}"})
+        seen = len(calls.read_text().splitlines())
+        stamps = []
+        rc, lines, counts, secs = run_trainer(env, 600, cwd=pkg_root,
+                                              stamps=stamps)
+        nvcc_calls = calls.read_text().splitlines()[seen:]
+        expect(rc == 0, f"{name} restart exited {rc}", lines)
+        first = [i for i, ln in enumerate(lines)
+                 if ln.endswith("(first after resume)")]
+        expect(len(first) == 1 and f"resumed at step {k} (width 1)" in lines,
+               f"{name}: no resume at step {k}", lines)
+        got = {r["step"] + 1: r["loss"] for r in sink.steps(f"cache_{name}")}
+        expect(sorted(got) == list(range(k + 1, N + 1))
+               and all(got[i] == want[i] for i in got),
+               f"{name}: losses {got} differ from {want}", lines)
+        loaded = [ln for ln in lines if ln.startswith("kernels: loaded ")]
+        expect(len(loaded) == 1 and loaded[0].startswith(
+            f"kernels: loaded {cache}{os.sep}libtj_kernels_"),
+            f"{name}: the library did not load from the cache", lines)
+        compiles = [c for c in nvcc_calls if " -c " in f" {c} "]
+        links = [c for c in nvcc_calls if " -shared " in f" {c} "]
+        if name == "cold":
+            expect(loaded[0].endswith(" s)") and "(built in " in loaded[0]
+                   and len(compiles) == n_sources and len(links) == 1,
+                   f"cold: not one build into the cache ({nvcc_calls})",
+                   lines)
+        else:
+            expect(loaded[0].endswith("(cache hit)") and not compiles
+                   and not links,
+                   f"{name}: nvcc ran ({nvcc_calls})", lines)
+        timing = line_fields(lines, "recovery_timing init_s")
+        expect(timing.get("resume_overlap") == overlap,
+               f"{name}: resume_overlap {timing.get('resume_overlap')}",
+               lines)
+        resume = [r for r in sink.records
+                  if r.get("job") == f"smoke/cache_{name}"
+                  and "resume_restore_ms" in r]
+        expect(len(resume) == 1 and resume[0]["resume_overlapped"]
+               == (overlap == "1"), f"{name}: resume record {resume}", lines)
+        restore_s = float(timing["restore_s"])
+        compile_s = float(timing["compile_s"])
+        wall_s = float(timing["resume_phases_wall_s"])
+        if name == "cold":
+            expect(wall_s < restore_s + compile_s,
+                   f"cold: no overlap ({timing})", lines)
+        expect(counts == train_launches(8, "none", N - k,
+                                        tensor_cores=True),
+               f"{name}: launches {counts}", lines)
+        launches.append(counts)
+        runs[name] = {
+            "rc": rc, "wall_s": secs,
+            "process_to_first_step_s": stamps[first[0]],
+            "restore_s": restore_s, "compile_s": compile_s,
+            "resume_phases_wall_s": wall_s,
+            "restore_ms": resume[0]["resume_restore_ms"],
+            "compile_ms": resume[0]["resume_compile_ms"],
+            "resume_overlap": int(overlap),
+            "first_step_s": float(line_fields(
+                lines, "recovery_timing first_step_s")["first_step_s"]),
+            "recovery": timing, "kernels": loaded[0],
+            "nvcc_calls": len(nvcc_calls), "nvcc_compiles": len(compiles),
+            "launches": counts}
+    expect(not (pkg_root / "trainingjob_operator_tpu_torch"
+                / "_build").exists(),
+           "the library landed in the package copy", [])
+    return {"config": "124m", "seq": 1024, "global_batch": 8,
+            "resumed_at": k, "steps": N, "cache_dir_files": sorted(
+                p.name for p in cache.iterdir()),
+            "runs": runs, "bit_identical_after_resume": True,
             "launches": {key: sum(c[key] for c in launches)
                          for key in launches[0]}}
 
@@ -1874,6 +2036,12 @@ def run_resizing_trainer(env, timeout: float, rdv_dir: str, doc: dict):
     return rc, lines, stamps, launches
 
 
+#: Steps of resize_ladder_124m's runs (resume_124m runs RESUME_STEPS): the
+#: generation is published after step 2's line, the resize lands at step
+#: 3, and every rung's run and restart trains on to this step.
+LADDER_STEPS = 6
+
+
 def resize_ladder_124m(sink, workdir, uninterrupted):
     """The trainer's entry point at the 124M config (``resume_124m``'s
     settings) with a coordinator (an NCCL group of one), the resize
@@ -1891,7 +2059,7 @@ def resize_ladder_124m(sink, workdir, uninterrupted):
 
     from trainingjob_operator_tpu_torch.workloads import train
 
-    N = RESUME_STEPS
+    N = LADDER_STEPS
     runs, launches = {}, []
 
     def env_of(job, ckpt, rdv_dir, **extra):
@@ -3045,16 +3213,17 @@ def main() -> int:
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    lib_path = _build.build()
     _build.library()
     build_s = time.perf_counter() - t0
+    lib_path = _build.found["path"]
     ptxas = [line.strip() for line in
-             (_build.BUILD_DIR / f"{_build.source_tag()}.log").read_text()
+             (lib_path.parent / f"{_build.source_tag()}.log").read_text()
              .splitlines() if "registers" in line or "Compiling entry" in
              line or "spill" in line]
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s,
+          "cuda": torch.version.cuda, "toolkit": _build.toolkit(),
+          "build_s": build_s, "build": _build.found["how"],
           "library": lib_path.name, "ptxas": ptxas})
 
     rms_cases = check_rmsnorm(torch, F, fused)
@@ -3159,6 +3328,11 @@ def main() -> int:
         resumed = resume_124m(torch, llama, decode, train, sink, workdir)
         emit({"phase": "resume_124m", "device": name, "nvidia_smi": smi,
               **resumed})
+        restarts = kernel_cache_restart_124m(
+            sink, workdir, resumed, resumed["runs"]["uninterrupted"]["losses"],
+            _build._nvcc())
+        emit({"phase": "kernel_cache_restart_124m", "device": name,
+              "nvidia_smi": smi, **restarts})
         shutil.rmtree(workdir, ignore_errors=True)
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         tel = telemetry(sink, workdir)
@@ -3193,7 +3367,8 @@ def main() -> int:
     # paths and the 124M trainer run the bf16 tensor-core kernels, the tiny
     # fp32 ones the f32-FMA kernels.
     paths = [served, generated, trained, remat["attn"], remat["dots"],
-             sharded, ringed, sp_run, resumed, tel, cross, resized, ladder,
+             sharded, ringed, sp_run, resumed, restarts, tel, cross, resized,
+             ladder,
              tiny,
              *tiny_train_runs(tiny_train), tiny_moe["serve"],
              *tiny_train_runs(tiny_moe["train"]), moe_served, moe_generated,

@@ -119,7 +119,7 @@ def test_serve_env_names_agree_with_the_jax_package():
     from trainingjob_operator_tpu_torch import constants as tconst
 
     names = [n for n in dir(tconst) if n.endswith("_ENV")]
-    assert len(names) == 40
+    assert len(names) == 45
     # The multi-process slice's rendezvous names.
     assert {"COORDINATOR_ADDRESS_ENV", "NUM_PROCESSES_ENV",
             "PROCESS_ID_ENV", "SLICE_ID_ENV", "NUM_SLICES_ENV"} <= set(names)
@@ -135,6 +135,9 @@ def test_serve_env_names_agree_with_the_jax_package():
     assert {"RESIZE_DIR_ENV", "RENDEZVOUS_GENERATION_ENV", "RESIZE_POLL_ENV",
             "RESIZE_FASTPATH_ENV", "RESIZE_LIVE_ENV", "RESIZE_BARRIER_ENV",
             "RESIZE_FAULT_ENV"} <= set(names)
+    # The worker's pod contract: reservation, platform, kernel cache.
+    assert {"RESERVATION_ENV", "RESERVATION_TTL_ENV", "JAX_PLATFORM_ENV",
+            "COMPILE_CACHE_DIR_ENV", "COMPILE_CACHE_ENV"} <= set(names)
     for name in names:
         assert getattr(tconst, name) == getattr(jconst, name)
 

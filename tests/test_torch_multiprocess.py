@@ -219,10 +219,11 @@ def test_a_checkpoint_resumes_at_another_width(runs, job, world):
                {k: want[k] for k in range(5, STEPS + 1)})
         assert f"resumed at step 4 (width {world})" in runs[job][rank]
     # The resume record: the image is never read across processes, and
-    # the two processes' step 4 left none.
+    # the two processes' step 4 left none.  The kernels' warm-up ran
+    # beside the restore (train.overlapped_restore).
     records = runs["resumes"][job]
     assert len(records) == world
-    assert all(r["resume_compile_ms"] == 0 and not r["resume_overlapped"]
+    assert all(r["resume_compile_ms"] >= 0 and r["resume_overlapped"]
                for r in records)
     if world == 1:
         assert records[0]["resume_fallback"] == "missing"

@@ -386,6 +386,9 @@ class TestBuild:
         for src in _build.SRC_DIR.glob("*.cu*"):
             (tmp_path / src.name).write_bytes(src.read_bytes())
         monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+        # The toolkit is part of the tag too (test_torch_recovery.py); no
+        # nvcc here, so it is held fixed.
+        monkeypatch.setattr(_build, "toolkit", lambda: "release 12.4")
         tag = _build.source_tag()
         assert tag == _build.source_tag()
         (tmp_path / "common.cuh").write_text("// edited\n")

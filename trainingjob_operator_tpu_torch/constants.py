@@ -23,6 +23,20 @@ REPLICA_RESTART_COUNT_ENV = "TRAININGJOB_REPLICA_RESTARTCOUNT"
 JOB_NAME_ENV = "TRAININGJOB_NAME"
 JOB_NAMESPACE_ENV = "TRAININGJOB_NAMESPACE"
 ELASTIC_REPLICAS_ENV = "TRAININGJOB_ELASTIC_REPLICAS"
+# Set to "1" on re-expand reservation pods (capacity canaries): the worker
+# idles instead of joining the rendezvous, and exits 143 past the TTL
+# (seconds) so that an orphaned canary frees its host.
+RESERVATION_ENV = "TRAININGJOB_RESERVATION"
+RESERVATION_TTL_ENV = "TRAININGJOB_RESERVATION_TTL"
+# The device a replica group asks for ("cpu", or "gpu"/"cuda" for the
+# card): the default of the mains' --device (rendezvous.platform_device).
+JAX_PLATFORM_ENV = "TRAININGJOB_JAX_PLATFORM"
+# The kernel cache: a job-survivable directory for the built kernel
+# library (takes precedence), then the legacy name; "off" in either
+# disables it; unset, <checkpoint dir>/.torch_kernel_cache
+# (rendezvous.compile_cache_dir).
+COMPILE_CACHE_DIR_ENV = "TRAININGJOB_COMPILE_CACHE_DIR"
+COMPILE_CACHE_ENV = "TRAININGJOB_COMPILE_CACHE"
 # A multi-process job's rendezvous: the coordinator "host:port" the process
 # group forms at, the process count and this process's id, and the slice
 # (MEGASCALE_*) layout that sets the mesh's dp axis.
@@ -34,7 +48,8 @@ NUM_SLICES_ENV = "MEGASCALE_NUM_SLICES"
 
 # The trainer's checkpoint root (workloads/train.py CheckpointState).
 CHECKPOINT_DIR_ENV = "TRAININGJOB_CHECKPOINT_DIR"
-# "0" turns off the resume fast path: the resume image is not read.
+# "0" turns off the resume fast path: the resume image is not read, and the
+# restore and the kernels' warm-up run one after the other.
 RESUME_OVERLAP_ENV = "TRAININGJOB_RESUME_OVERLAP"
 # "0" turns off snapshot-donate saves: every save writes on the step loop.
 CKPT_SNAPSHOT_ENV = "TRAININGJOB_CKPT_SNAPSHOT"

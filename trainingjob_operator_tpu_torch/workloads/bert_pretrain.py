@@ -109,20 +109,23 @@ def make_step(params, cfg, *, lr: float, opt_state=None, mesh=None
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         "python -m trainingjob_operator_tpu_torch.workloads.bert_pretrain")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default=None,
+                        help="cuda or cpu (default: the card, or what "
+                             "TRAININGJOB_JAX_PLATFORM asks for)")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    from trainingjob_operator_tpu_torch.workloads import rendezvous
+
+    rdv, device = rendezvous.prepare_worker(args.device)
+    device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.models import bert
     from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
     from trainingjob_operator_tpu_torch.parallel import sharding
     from trainingjob_operator_tpu_torch.workloads import (
         llama_elastic,
-        rendezvous,
         train,
     )
 
-    rdv = rendezvous.from_env()
     env = os.environ
     cfg = (bert.BertConfig.base() if env.get("BERT_CONFIG", "tiny") == "base"
            else bert.BertConfig.tiny())

@@ -69,9 +69,14 @@ def restore_params(cfg, device, family: str = "llama") -> Tuple[dict, int]:
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         "python -m trainingjob_operator_tpu_torch.workloads.generate")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default=None,
+                        help="cuda or cpu (default: the card, or what "
+                             "TRAININGJOB_JAX_PLATFORM asks for)")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    from trainingjob_operator_tpu_torch.workloads import rendezvous
+
+    _, device = rendezvous.prepare_worker(args.device)
+    device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.models import decode, moe_decode
 

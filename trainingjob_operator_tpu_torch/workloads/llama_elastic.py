@@ -41,6 +41,16 @@ drawn on the CPU (``torch.Generator`` seed 0, not JAX's PRNGKey(0)), the
 same on every device and at every width (and not drawn when a checkpoint
 restores), f32 masters cast to the compute dtype at each use.
 
+The worker first runs the pod contract (``rendezvous.prepare_worker``: a
+reservation pod holds and exits 143, ``TRAININGJOB_JAX_PLATFORM`` picks
+the device where ``--device`` is not given, the kernel library looks in
+the job's cache), then restores inside ``train.overlapped_restore``
+beside the kernels' warm-up (``train.warm_up``), and prints JAX's
+``recovery_timing`` split, ``compile_s`` being the warm-up's wall time.
+JAX's executable snapshot and ``aot_or_jit`` have no counterpart: the
+eager step compiles nothing, and the kernels take no shape, so the cached
+library serves every width.
+
 Run: ``python -m trainingjob_operator_tpu_torch.workloads.llama_elastic
 [--device cuda|cpu]``.  Env, as the JAX module reads it:
 LLAMA_CONFIG=tiny|124m|7b, LLAMA_TP, LLAMA_SP, LLAMA_PP,
@@ -372,18 +382,22 @@ def resize_cycle(ts: TrainState, watcher, *, cfg, lr: float, tp: int,
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         "python -m trainingjob_operator_tpu_torch.workloads.llama_elastic")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default=None,
+                        help="cuda or cpu (default: the card, or what "
+                             "TRAININGJOB_JAX_PLATFORM asks for)")
     args = parser.parse_args(argv)
     t_main = time.time()
-    device = resolve_device(args.device)
+    from trainingjob_operator_tpu_torch.workloads import rendezvous
+
+    rdv, device = rendezvous.prepare_worker(args.device)
+    device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.models import llama
     from trainingjob_operator_tpu_torch.obs.trace import tracer_from_env
     from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
     from trainingjob_operator_tpu_torch.parallel import pipeline, sharding
-    from trainingjob_operator_tpu_torch.workloads import rendezvous, train
+    from trainingjob_operator_tpu_torch.workloads import train
 
-    rdv = rendezvous.from_env()
     env = os.environ
     cfg_name = env.get("LLAMA_CONFIG", "tiny")
     if cfg_name not in llama.CONFIGS:
@@ -437,12 +451,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                                mesh=mesh)
     opt_state = train.AdamW(params, lr).state
     t_setup = time.time()
-    # One checkpoint path for every process of the job, as in JAX.
-    state = train.CheckpointState.restore_or_init(
-        rdv, {"params": params, "opt_state": opt_state, "step": 0},
-        subdir="llama", layout=shard_layout(rdv, cfg, mesh))
-    restore_s = time.time() - t_setup
-    train.push_resume_record(restore_s, state.fallback)
+    tracer, trace_parent = tracer_from_env()
+
+    def restore_fn():
+        # One checkpoint path for every process of the job, as in JAX.
+        return train.CheckpointState.restore_or_init(
+            rdv, {"params": params, "opt_state": opt_state, "step": 0},
+            subdir="llama", layout=shard_layout(rdv, cfg, mesh))
+
+    # The kernels' warm-up runs beside the restore (JAX's warm compile):
+    # a cold kernel cache builds here, not inside the first step.
+    state, _, rtimes = train.overlapped_restore(
+        restore_fn, train.warm_up(device), tracer=tracer,
+        trace_parent=trace_parent)
+    train.push_resume_record(rtimes["restore_s"], state.fallback,
+                             rtimes["compile_s"], rtimes["overlap"])
     ts = TrainState(rdv=rdv, device=device, mesh=mesh,
                     world=list(range(max(rdv.elastic_replicas, 1))),
                     params=state.value["params"],
@@ -452,13 +475,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     if ts.start_step > 0:
         print(f"resumed at step {ts.start_step} (width "
               f"{rdv.elastic_replicas})", flush=True)
-    # JAX's recovery breakdown, for its log readers: eager PyTorch compiles
-    # nothing (the kernels build at the first launch, inside first_step_s),
-    # so compile_s is 0 and the phases do not overlap.
+    # JAX's recovery breakdown, for its log readers: init = the process
+    # group, setup = the model's allocation, restore = the checkpoint read,
+    # compile = the kernels' warm-up (``train.warm_up``), and
+    # resume_phases_wall = the restore||warm-up region's wall clock (about
+    # the larger of the two with resume_overlap=1, their sum with
+    # TRAININGJOB_RESUME_OVERLAP=0).  The first step is printed by
+    # run_elastic_loop.
     print(f"recovery_timing init_s={t_init - t_main:.2f} "
-          f"setup_s={t_setup - t_init:.2f} restore_s={restore_s:.2f} "
-          f"compile_s=0.00 resume_phases_wall_s={restore_s:.2f} "
-          f"resume_overlap=0", flush=True)
+          f"setup_s={t_setup - t_init:.2f} "
+          f"restore_s={rtimes['restore_s']:.2f} "
+          f"compile_s={rtimes['compile_s']:.2f} "
+          f"resume_phases_wall_s={rtimes['wall_s']:.2f} "
+          f"resume_overlap={int(rtimes['overlap'])}", flush=True)
     for leaf in train.tree_leaves(ts.params):
         leaf.requires_grad_(True)
 
@@ -511,7 +540,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     width_build(ts)
     watcher = (rendezvous.GenerationWatcher(rdv) if rdv.resize_dir
                else None)
-    tracer, trace_parent = tracer_from_env()
     n_params = llama.num_params(cfg)
     try:
         while True:

@@ -204,17 +204,20 @@ def process_age_s() -> Optional[float]:
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         "python -m trainingjob_operator_tpu_torch.workloads.mnist")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default=None,
+                        help="cuda or cpu (default: the card, or what "
+                             "TRAININGJOB_JAX_PLATFORM asks for)")
     args = parser.parse_args(argv)
     t_main = time.time()
     age_main = process_age_s()
-    device = resolve_device(args.device)
+    from trainingjob_operator_tpu_torch.workloads import rendezvous
+
+    rdv, device = rendezvous.prepare_worker(args.device)
+    device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
-    from trainingjob_operator_tpu_torch.workloads import rendezvous
     from trainingjob_operator_tpu_torch.workloads import train as tr
 
-    rdv = rendezvous.from_env()
     mesh = None
     if rdv.coordinator_address or rdv.num_processes > 1:
         device = rendezvous.initialize_distributed(rdv, device)

@@ -56,20 +56,20 @@ from trainingjob_operator_tpu_torch import resolve_device
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         "python -m trainingjob_operator_tpu_torch.workloads.moe_pretrain")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default=None,
+                        help="cuda or cpu (default: the card, or what "
+                             "TRAININGJOB_JAX_PLATFORM asks for)")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    from trainingjob_operator_tpu_torch.workloads import rendezvous
+
+    rdv, device = rendezvous.prepare_worker(args.device)
+    device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.models import llama, moe
     from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
     from trainingjob_operator_tpu_torch.parallel import sharding
-    from trainingjob_operator_tpu_torch.workloads import (
-        llama_elastic,
-        rendezvous,
-        train,
-    )
+    from trainingjob_operator_tpu_torch.workloads import llama_elastic, train
 
-    rdv = rendezvous.from_env()
     env = os.environ
     tp = int(env.get("MOE_TP", "1"))
     ep = int(env.get("MOE_EP", "1"))

@@ -3,9 +3,16 @@ and their re-forming in place: own copy of the JAX package's
 ``workloads/rendezvous.py``.
 
 - ``Rendezvous`` / ``from_env``: the fields training reads (the checkpoint
-  path, the startup line, the process group, the mesh and the resize
-  channel), and ``initialize_distributed``, the counterpart of
-  ``initialize_jax_distributed``.
+  path, the startup line, the process group, the mesh, the resize
+  channel and the reservation flag), and ``initialize_distributed``, the
+  counterpart of ``initialize_jax_distributed``'s process-group half.
+- The worker's pod contract, which every port main runs first
+  (``prepare_worker``, the rest of ``initialize_jax_distributed``):
+  ``Rendezvous.hold_reservation_if_needed`` verbatim, the platform
+  override (``platform_device``: ``TRAININGJOB_JAX_PLATFORM`` picks the
+  device where ``--device`` is not given) and the kernel cache
+  (``compile_cache_dir`` / ``enable_compile_cache``, which point
+  ``ops/_build.py`` at the job's directory).
 - The resize channel: ``read_generation`` and ``GenerationWatcher`` (the
   step loop's poll of the controller's ``generation.json``), verbatim.
 - The rebootstrap ladder: ``RebootstrapError``, ``resize_faults`` /
@@ -13,8 +20,9 @@ and their re-forming in place: own copy of the JAX package's
   verbatim, and ``rebootstrap_distributed``, the counterpart of
   ``rebootstrap_jax_distributed`` on ``torch.distributed``:
   ``destroy_process_group``, then ``init_process_group`` at the published
-  coordinator, rank and world.  JAX's backend clear, compile cache,
-  platform override and partitioner have no torch counterpart.
+  coordinator, rank and world.  JAX's backend clear (which
+  ``destroy_process_group`` covers) and its partitioner (GSPMD) have no
+  torch counterpart.
 
 One process drives one card: ``num_processes`` is the world size of the
 process group and ``process_id`` its rank.  Every generation forms its
@@ -29,6 +37,7 @@ import dataclasses
 import json
 import os
 import socket
+import sys
 import time
 from dataclasses import dataclass
 from datetime import timedelta
@@ -78,8 +87,31 @@ class Rendezvous:
     coordinator_address: str = ""
     slice_id: int = 0
     num_slices: int = 1
+    is_reservation: bool = False
+    #: Seconds a reservation pod holds before it exits 143 (0: no end).
+    reservation_ttl: float = 0.0
     resize_dir: str = ""
     rendezvous_generation: int = 0
+
+    def hold_reservation_if_needed(
+            self, sleep: Callable[[float], None] = time.sleep) -> None:
+        """Re-expand reservation pods (capacity canaries) idle here instead
+        of joining a rendezvous they are not part of; the operator restarts
+        them with a real rank once the resize commits.  Call first in every
+        main, before anything touches the device.
+
+        The hold is bounded: past the injected TTL the canary exits 143
+        (pod Failed, and the controller's probe-failed path cancels the
+        probe), so a probe orphaned by a dead controller frees its host;
+        without a TTL it holds until it is killed."""
+        if not self.is_reservation:
+            return
+        ttl = self.reservation_ttl
+        deadline = time.time() + ttl if ttl > 0 else None
+        while deadline is None or time.time() < deadline:
+            sleep(min(5.0, max(deadline - time.time(), 0.01))
+                  if deadline is not None else 3600)
+        sys.exit(143)
 
     @property
     def generation_path(self) -> str:
@@ -190,9 +222,90 @@ def from_env(env: Optional[Dict[str, str]] = None) -> Rendezvous:
         coordinator_address=e.get(constants.COORDINATOR_ADDRESS_ENV, ""),
         slice_id=int(e.get(constants.SLICE_ID_ENV, "0") or 0),
         num_slices=int(e.get(constants.NUM_SLICES_ENV, "1") or 1),
+        is_reservation=e.get(constants.RESERVATION_ENV, "") == "1",
+        # Read only for a reservation pod, as JAX reads it in its hold.
+        reservation_ttl=(float(e.get(constants.RESERVATION_TTL_ENV, "0")
+                               or 0)
+                         if e.get(constants.RESERVATION_ENV, "") == "1"
+                         else 0.0),
         resize_dir=e.get(constants.RESIZE_DIR_ENV, ""),
         rendezvous_generation=int(
             e.get(constants.RENDEZVOUS_GENERATION_ENV, "0") or 0))
+
+
+#: The values of ``TRAININGJOB_JAX_PLATFORM`` a port main takes, and the
+#: device each asks for.
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+#: The kernel cache's directory under the checkpoint root where no cache
+#: variable names one (JAX's is ``.jax_compile_cache``: the two hold
+#: different artefacts).
+KERNEL_CACHE_SUBDIR = ".torch_kernel_cache"
+
+
+def platform_device(default: str = "cuda",
+                    env: Optional[Dict[str, str]] = None) -> str:
+    """The device a main runs on where its caller passed no ``--device``:
+    the platform the operator's ``TRAININGJOB_JAX_PLATFORM`` asks for
+    (``cpu``; ``gpu`` or ``cuda`` for the card), else ``default``.  The
+    counterpart of JAX's ``apply_platform_override``.  Any other value
+    raises ``ValueError``; unset, nothing picks the CPU on its own."""
+    e = os.environ if env is None else env
+    plat = e.get(constants.JAX_PLATFORM_ENV, "").strip()
+    if not plat:
+        return default
+    if plat.lower() not in PLATFORMS:
+        raise ValueError(
+            f"{constants.JAX_PLATFORM_ENV}={plat!r}: expected one of "
+            f"{', '.join(PLATFORMS)}")
+    return PLATFORMS[plat.lower()]
+
+
+def compile_cache_dir(rdv: Rendezvous) -> str:
+    """The job's kernel-cache directory ("" when disabled), resolved as
+    JAX resolves its compile cache: ``TRAININGJOB_COMPILE_CACHE_DIR`` (a
+    job-survivable location, such as a cluster volume), then
+    ``TRAININGJOB_COMPILE_CACHE``, then
+    ``<checkpoint_dir>/.torch_kernel_cache`` (it lives as long as the
+    checkpoint); ``off`` in either variable disables it."""
+    path = (os.environ.get(constants.COMPILE_CACHE_DIR_ENV, "")
+            or os.environ.get(constants.COMPILE_CACHE_ENV, ""))
+    if not path and rdv.checkpoint_dir:
+        path = os.path.join(rdv.checkpoint_dir, KERNEL_CACHE_SUBDIR)
+    return "" if (not path or path == "off") else path
+
+
+def enable_compile_cache(rdv: Rendezvous) -> str:
+    """Point the kernel library (``ops/_build.py``) at the job's cache
+    directory (``compile_cache_dir``), made here; a disabled cache leaves
+    it at the package's ``_build/``.  A restarted worker in a fresh
+    container then loads the library its job built before instead of
+    running ``nvcc`` inside its first step.  Returns the directory."""
+    from trainingjob_operator_tpu_torch.ops import _build
+
+    path = compile_cache_dir(rdv)
+    if path:
+        os.makedirs(path, exist_ok=True)
+    _build.set_cache_dir(path)
+    return path
+
+
+def prepare_worker(device: Optional[str] = None,
+                   rdv: Optional[Rendezvous] = None
+                   ) -> Tuple[Rendezvous, str]:
+    """The preamble every port main runs first, before any CUDA call, as
+    JAX's ``initialize_jax_distributed`` begins: a reservation pod holds
+    here and exits (``hold_reservation_if_needed``), the platform override
+    picks the device where ``device`` (``--device``) is None
+    (``platform_device``), and the kernel cache is enabled
+    (``enable_compile_cache``).  Returns the rendezvous and the device's
+    name; the process group forms later (``initialize_distributed``),
+    once the device is resolved."""
+    rdv = from_env() if rdv is None else rdv
+    rdv.hold_reservation_if_needed()
+    device = device or platform_device()
+    enable_compile_cache(rdv)
+    return rdv, device
 
 
 #: The coordinator store this process holds: {"address", "master",

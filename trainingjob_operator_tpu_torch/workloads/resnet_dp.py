@@ -123,16 +123,20 @@ def make_step(params, stats: Dict[str, Any], cfg, *, lr: float,
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         "python -m trainingjob_operator_tpu_torch.workloads.resnet_dp")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default=None,
+                        help="cuda or cpu (default: the card, or what "
+                             "TRAININGJOB_JAX_PLATFORM asks for)")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    from trainingjob_operator_tpu_torch.workloads import rendezvous
+
+    rdv, device = rendezvous.prepare_worker(args.device)
+    device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.models import resnet
     from trainingjob_operator_tpu_torch.parallel import mesh as pmesh
     from trainingjob_operator_tpu_torch.parallel import sharding
-    from trainingjob_operator_tpu_torch.workloads import rendezvous, train
+    from trainingjob_operator_tpu_torch.workloads import train
 
-    rdv = rendezvous.from_env()
     env = os.environ
     cfg = (resnet.ResNetConfig.resnet50()
            if env.get("RESNET_CONFIG", "tiny") == "resnet50"

@@ -521,9 +521,14 @@ def _quantile(values: List[float], p: float) -> float:
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         "python -m trainingjob_operator_tpu_torch.workloads.serve")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default=None,
+                        help="cuda or cpu (default: the card, or what "
+                             "TRAININGJOB_JAX_PLATFORM asks for)")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    from trainingjob_operator_tpu_torch.workloads import rendezvous
+
+    _, device = rendezvous.prepare_worker(args.device)
+    device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.obs.telemetry import TelemetryEmitter
     from trainingjob_operator_tpu_torch.workloads.generate import (

@@ -8,7 +8,9 @@ Gradient accumulation (``accumulated_value_and_grad``), batch geometry
 a tree ``{"count", "mu", "nu"}``), optax's SGD with momentum (``SGD``,
 state ``{"trace"}``), the crash injection of the kill-and-resume
 contract (``kill_at_step``), checkpoints (``CheckpointState``: step
-directories, the resume image and their fallback ladder), the preemption
+directories, the resume image and their fallback ladder), the resume fast
+path (``overlapped_restore`` with ``warm_up``, and its
+``push_resume_record``), the preemption
 handler (``GracefulShutdown``), the step profiler and telemetry
 (``StepProfiler``), the step loop (``run_elastic_loop``, run by every
 process of a job alike, under ``peer_loss_guard``) and the resize's
@@ -755,8 +757,9 @@ _CKPT_SHA_LEN = 32
 
 
 def resume_fastpath_enabled() -> bool:
-    """Whether a restore reads the resume image first
-    (``TRAININGJOB_RESUME_OVERLAP=0`` turns it off)."""
+    """Whether the resume fast path is on: a restore reads the resume image
+    first, and ``overlapped_restore`` runs the warm-up beside the restore.
+    ``TRAININGJOB_RESUME_OVERLAP=0`` turns both off."""
     return os.environ.get(constants.RESUME_OVERLAP_ENV, "1") != "0"
 
 
@@ -1346,17 +1349,119 @@ def kill_at_step(state: "CheckpointState", step: int) -> None:
     os.kill(os.getpid(), signal.SIGKILL)
 
 
-def push_resume_record(restore_s: float, fallback: str = "") -> None:
+def warm_up(device) -> Callable[[], None]:
+    """``overlapped_restore``'s ``warm_fn`` for a step on ``device``: the
+    counterpart of JAX's warm compile, holding what the first step would
+    otherwise pay once per process (``workloads/first_step_probe.py``
+    splits it on the card):
+
+    - the import of ``torch.fx.experimental.symbolic_shapes`` (and sympy,
+      about 480 modules), which the first backward triggers;
+    - on the card, the kernel library (``ops/_build.py`` ``library``:
+      loaded from the job's cache, or built by ``nvcc`` in subprocesses,
+      which leaves the interpreter to the restore);
+    - on the card, a cuBLAS handle: PyTorch returns a thread's handles to
+      a pool when the thread ends, and the step's first product takes
+      one from there instead of making its own.
+
+    Nothing in it touches the step's tensors or numerics."""
+    dev = torch.device(device)
+
+    def run() -> None:
+        if dev.type == "cuda":
+            from trainingjob_operator_tpu_torch.ops import _build
+
+            _build.library()
+        import torch.fx.experimental.symbolic_shapes  # noqa: F401
+
+        if dev.type == "cuda":
+            a = torch.zeros(64, 64, device=dev, dtype=torch.bfloat16)
+            torch.mm(a, a)
+            torch.cuda.synchronize(dev)
+
+    return run
+
+
+def overlapped_restore(restore_fn: Callable[[], Any],
+                       warm_fn: Optional[Callable[[], Any]] = None,
+                       tracer: Any = None, trace_parent: Any = None,
+                       overlap: Optional[bool] = None):
+    """Run the checkpoint restore and the warm-up of the step's kernels as
+    overlapped phases, so that a resume costs about max(restore, warm-up)
+    instead of their sum: the JAX ``overlapped_restore``, with the warm
+    compile replaced by ``warm_fn`` (``warm_up``: the kernel library
+    loaded from the job's cache, or built by ``nvcc`` in subprocesses).
+
+    ``restore_fn()`` -> the restored state, on the calling thread (span
+    ``resume.restore``).  ``warm_fn()`` on a helper thread (span
+    ``resume.compile``, JAX's name, for its readers).  ``overlap=False``
+    (or ``TRAININGJOB_RESUME_OVERLAP=0``) runs the same two phases one
+    after the other, still timed.
+
+    A failed warm-up never fails the resume: the error is printed and the
+    first kernel launch builds again (and raises if that fails too).
+
+    Returns ``(restored, warmed, timings)``: ``warmed`` is what
+    ``warm_fn`` returned (None after a failure); timings ``restore_s``,
+    ``compile_s`` (the warm-up's wall time), ``wall_s`` and ``overlap``
+    (whether the phases ran concurrently)."""
+    if overlap is None:
+        overlap = resume_fastpath_enabled()
+    result: Dict[str, Any] = {}
+
+    def run_warm() -> None:
+        t0 = time.perf_counter()
+        try:
+            with _span(tracer, "resume.compile", parent=trace_parent):
+                result["warmed"] = warm_fn()
+        # The warm-up is an optimization: whatever it raises (a failed
+        # build, a missing toolkit), the first kernel launch tries again.
+        except Exception as exc:
+            result["error"] = exc
+        result["compile_s"] = time.perf_counter() - t0
+
+    t_wall = time.perf_counter()
+    thread: Optional[threading.Thread] = None
+    if overlap and warm_fn is not None:
+        thread = threading.Thread(target=run_warm, daemon=True,
+                                  name="resume-compile")
+        thread.start()
+    t0 = time.perf_counter()
+    try:
+        with _span(tracer, "resume.restore", parent=trace_parent):
+            restored = restore_fn()
+        restore_s = time.perf_counter() - t0
+    finally:
+        if thread is not None:
+            thread.join()
+    if thread is None and warm_fn is not None:
+        run_warm()
+    if "error" in result:
+        err = result["error"]
+        print(f"resume: warm-up failed ({type(err).__name__}: "
+              f"{str(err)[:200]}); the first kernel launch will build",
+              flush=True)
+    timings = {"restore_s": restore_s,
+               "compile_s": result.get("compile_s", 0.0),
+               "wall_s": time.perf_counter() - t_wall,
+               "overlap": thread is not None}
+    return restored, result.get("warmed"), timings
+
+
+def push_resume_record(restore_s: float, fallback: str = "",
+                       compile_s: float = 0.0, overlap: bool = False
+                       ) -> None:
     """Send one restore's record to the controller's telemetry sink (a
     short-lived emitter; nothing without the telemetry env), as the JAX
-    ``_push_resume_record``: the restore's wall time, a compile time of 0
-    and no overlap (eager PyTorch compiles nothing ahead of the first
-    step), and the fallback the restore took."""
+    ``_push_resume_record``: the restore's and the warm-up's wall times
+    (``overlapped_restore``'s ``restore_s`` and ``compile_s``), whether
+    they overlapped, and the fallback the restore took."""
     emitter = TelemetryEmitter()
     if not emitter.enabled:
         return
     try:
-        emitter.emit_resume(restore_s * 1e3, 0.0, False, fallback=fallback)
+        emitter.emit_resume(restore_s * 1e3, compile_s * 1e3, bool(overlap),
+                            fallback=fallback)
     finally:
         emitter.close()
 
