@@ -114,6 +114,18 @@ script exits non-zero):
    them.  Per restart: process start -> first step, ``restore_s``,
    ``compile_s``, ``resume_phases_wall_s``, ``first_step_s``, the
    ``kernels:`` line and the launches.
+10b. jax_handoff_124m: a job the JAX package's worker
+   committed, taken over: phase 10's committed step k written as the JAX
+   trainer commits it (an orbax step's marker and the resume image: numpy
+   leaves, optax's AdamW state named by its globals, the sha256 footer),
+   with no JAX or optax here.  ``generate`` on it gives the greedy tokens
+   of the same parameters; the trainer's entry point resumes it at step
+   k (``resume: step k restored from the JAX package's resume image``,
+   the resume record's fallback ``jax_image``) and trains HANDOFF_STEPS
+   steps whose losses equal phase 10's uninterrupted run's bit for bit,
+   launches as ``train_launches``; its port steps sit beside the JAX
+   step.  Prints the image's size, write and read split (read, sha256,
+   unpickle, conversion), ``restore_s`` and process start -> first step.
 11. telemetry: a 6-step 124M run with telemetry, the step profiler and
    the span trace on: one record per step, ``hbm_bytes`` on every second,
    ``ckpt_ms`` on the record after the save, a ``torch.profiler`` Chrome
@@ -206,7 +218,7 @@ Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
 dK/dV, with their launches on the paths driven (the 7B phases 5-9b and 13,
-the 124M trainer of phases 10-11 (10a too) and 14 and the Mixtral-width phases
+the 124M trainer of phases 10-11 (10a and 10b too) and 14 and the Mixtral-width phases
 15-16a run the bf16 tensor-core kernels, the tiny fp32 phases 3-4a and 12
 and the tiny MoE trainer of phase 17 (head dim 16) the f32-FMA ones; a
 trainer process reports its launches when it returns) and,
@@ -1648,6 +1660,116 @@ def kernel_cache_restart_124m(sink, workdir, resumed, want, nvcc: str):
             "runs": runs, "bit_identical_after_resume": True,
             "launches": {key: sum(c[key] for c in launches)
                          for key in launches[0]}}
+
+
+#: jax_handoff_124m: steps the trainer takes after the handed-off step.
+HANDOFF_STEPS = 3
+
+
+def jax_handoff_124m(torch, llama, decode, train, sink, workdir, resumed,
+                     want):
+    """A job the JAX package's worker committed, taken over by the port:
+    resume_124m's committed step k (the port's seeded init and k steps)
+    written as the JAX trainer commits it (an orbax step directory's
+    marker and the resume image: numpy leaves, optax's AdamW chain state
+    by its globals, the sha256 footer; ``jax_state.write_image``), with no
+    JAX here.  ``generate`` on it samples the greedy tokens of the same
+    parameters; the trainer's entry point resumes it at step k and trains
+    HANDOFF_STEPS steps whose losses equal the uninterrupted run's (which
+    the port's own restarts from step k equal) bit for bit, with the
+    launches ``train_launches`` counts."""
+    import os
+
+    from trainingjob_operator_tpu_torch.workloads import generate, jax_state
+
+    k = resumed["preempted_at_committed_step"]
+    committed = Path(workdir) / COMMITTED_COPY / "llama" / str(k)
+    params = torch.load(committed / "params.pt", weights_only=True)
+    opt_state = torch.load(committed / "opt_state.pt", weights_only=True)
+    ckpt = Path(workdir) / "jax_handoff"
+    path = ckpt / "llama"
+    (path / str(k) / "default").mkdir(parents=True)
+    # Orbax's commit marker; the port reads only its presence.
+    (path / str(k) / jax_state.ORBAX_MARKER).write_text("{}")
+    t0 = time.perf_counter()
+    jax_state.write_image(str(path), k,
+                          jax_state.adamw_tree(params, opt_state, k))
+    write_s = time.perf_counter() - t0
+    image_bytes = (path / jax_state.IMAGE).stat().st_size
+
+    # generate on the JAX job's directory, against the same parameters.
+    cfg = llama.LlamaConfig.base_124m()
+    same = train._onto(llama.init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(0), "cuda"), params)
+    del params, opt_state
+    prompt = [1, 450, 4996, 17354, 1701, 29916]
+    t0 = time.perf_counter()
+    rc, out, gen_launches = run_main(
+        torch, generate.main, LLAMA_CONFIG="124m", GEN_STEPS="24",
+        GEN_PROMPT=",".join(map(str, prompt)),
+        TRAININGJOB_CHECKPOINT_DIR=str(ckpt))
+    generate_s = time.perf_counter() - t0
+    want_tokens = decode.generate(same, torch.tensor([prompt],
+                                                     device="cuda"),
+                                  cfg, steps=24)[0].tolist()
+    del same
+    expect(rc == 0 and f"resume: step {k} restored from the JAX package's "
+           "resume image" in out
+           and f"sampling from checkpoint at step {k}" in out
+           and f"tokens: {','.join(map(str, want_tokens))}" in out,
+           f"generate from the JAX job: {want_tokens}", out)
+    expect(gen_launches["flash_attention_fwd"]
+           == gen_launches["flash_attention_fwd_wgmma"] == cfg.n_layers,
+           f"generate launches {gen_launches}", out)
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ)
+    # One save, at the last step: a 1.5 GB step directory and image each.
+    env.update({"LLAMA_CONFIG": "124m", "LLAMA_SEQ": "1024",
+                "LLAMA_BATCH": "8", "LLAMA_STEPS": str(k + HANDOFF_STEPS),
+                "LLAMA_CKPT_EVERY": str(k + HANDOFF_STEPS),
+                "TRAININGJOB_CHECKPOINT_DIR": str(ckpt),
+                "TRAININGJOB_TELEMETRY_ADDR": sink.address,
+                "TRAININGJOB_NAMESPACE": "smoke",
+                "TRAININGJOB_NAME": "jax_handoff"})
+    stamps = []
+    rc, lines, counts, secs = run_trainer(env, 300, stamps=stamps)
+    expect(rc == 0, f"handoff trainer exited {rc}", lines)
+    expect(f"resume: step {k} restored from the JAX package's resume image"
+           in lines and f"resumed at step {k} (width 1)" in lines,
+           f"no resume at the JAX job's step {k}", lines)
+    got = {r["step"] + 1: r["loss"] for r in sink.steps("jax_handoff")}
+    expect(sorted(got) == list(range(k + 1, k + HANDOFF_STEPS + 1))
+           and all(got[i] == want[i] for i in got),
+           f"handoff losses {got} differ from {want}", lines)
+    expect(counts == train_launches(8, "none", HANDOFF_STEPS,
+                                    tensor_cores=True),
+           f"handoff launches {counts}", lines)
+    resume = [r for r in sink.records if r.get("job") == "smoke/jax_handoff"
+              and "resume_restore_ms" in r]
+    expect(len(resume) == 1 and resume[0].get("resume_fallback")
+           == "jax_image", f"handoff resume record {resume}", lines)
+    expect(train.committed_steps(str(path))[0] == k + HANDOFF_STEPS
+           and (path / str(k) / jax_state.ORBAX_MARKER).exists(),
+           "the port's steps beside the JAX step", lines)
+    first = [i for i, ln in enumerate(lines)
+             if ln.endswith("(first after resume)")]
+    image = line_fields(lines, "resume: jax image ")
+    return {"config": "124m", "seq": 1024, "global_batch": 8,
+            "handed_off_at": k, "steps": HANDOFF_STEPS,
+            "image_bytes": image_bytes, "image_write_s": write_s,
+            "generate_s": generate_s, "image_read": image, "convert_s": float(image["convert_s"]),
+            "recovery": line_fields(lines, "recovery_timing init_s"),
+            "restore_s": float(line_fields(
+                lines, "recovery_timing init_s")["restore_s"]),
+            "first_step_s": float(line_fields(
+                lines, "recovery_timing first_step_s")["first_step_s"]),
+            "process_to_first_step_s": stamps[first[0]],
+            "trainer_wall_s": secs, "losses": got,
+            "bit_identical_after_resume": True,
+            "generate_tokens": want_tokens,
+            "launches": {key: counts[key] + gen_launches[key]
+                         for key in counts}}
 
 
 def telemetry(sink, workdir):
@@ -3333,6 +3455,11 @@ def main() -> int:
             _build._nvcc())
         emit({"phase": "kernel_cache_restart_124m", "device": name,
               "nvidia_smi": smi, **restarts})
+        handoff = jax_handoff_124m(
+            torch, llama, decode, train, sink, workdir, resumed,
+            resumed["runs"]["uninterrupted"]["losses"])
+        emit({"phase": "jax_handoff_124m", "device": name,
+              "nvidia_smi": smi, **handoff})
         shutil.rmtree(workdir, ignore_errors=True)
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         tel = telemetry(sink, workdir)
@@ -3367,7 +3494,8 @@ def main() -> int:
     # paths and the 124M trainer run the bf16 tensor-core kernels, the tiny
     # fp32 ones the f32-FMA kernels.
     paths = [served, generated, trained, remat["attn"], remat["dots"],
-             sharded, ringed, sp_run, resumed, restarts, tel, cross, resized,
+             sharded, ringed, sp_run, resumed, restarts, handoff, tel, cross,
+             resized,
              ladder,
              tiny,
              *tiny_train_runs(tiny_train), tiny_moe["serve"],

@@ -1,8 +1,8 @@
 """Boundaries of the PyTorch port.
 
-- The port package and ``chip_smoke.py`` import neither ``jax`` nor the
-  JAX package (AST scan), and every port module imports with ``jax``
-  made unimportable.
+- The port package and ``chip_smoke.py`` import neither ``jax``,
+  ``optax``, ``orbax`` nor the JAX package (AST scan), and every port
+  module imports with all of them made unimportable.
 - The port's copy of the env names (serve knobs, worker identity and
   rendezvous, checkpoint, profiler, telemetry and trace knobs) agrees
   with the JAX package's.
@@ -25,7 +25,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "trainingjob_operator_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "trainingjob_operator_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "trainingjob_operator_tpu")
 
 
 def _port_files():
@@ -100,7 +100,7 @@ def test_the_moe_modules_are_scanned():
 def test_every_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
-        "for name in ('jax', 'jaxlib', 'trainingjob_operator_tpu'):\n"
+        f"for name in {FORBIDDEN!r}:\n"
         "    sys.modules[name] = None\n"
         f"for mod in {_port_modules()!r}:\n"
         "    importlib.import_module(mod)\n"

@@ -25,7 +25,9 @@ tp processes of one shard different rows (a reference fault).
 
 Checkpoints: with ``TRAININGJOB_CHECKPOINT_DIR`` set, ``{"params",
 "opt_state", "step"}`` is restored from ``<dir>/bert`` (any width) or
-initialised, and saved every 10 steps and at the last.  Like JAX's, the
+initialised (a state the JAX trainer committed restores from its resume
+image: ``from_jax_state``), and saved every 10 steps and at the last.
+Like JAX's, the
 trainer installs no SIGTERM handler: a killed job resumes from its last
 save (``TRAININGJOB_KILL_AT_STEP``: ``train.kill_at_step``).
 
@@ -44,7 +46,7 @@ import argparse
 import os
 import sys
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -106,6 +108,18 @@ def make_step(params, cfg, *, lr: float, opt_state=None, mesh=None
     return step
 
 
+def from_jax_state(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``CheckpointState.restore_or_init``'s ``convert`` for the JAX
+    trainer's committed tree: f32 master parameters and ``optax.adamw``'s
+    state as ``train.AdamW``'s, on the CPU."""
+    from trainingjob_operator_tpu_torch.models import bert
+    from trainingjob_operator_tpu_torch.workloads import train
+
+    return {"params": bert.params_from_numpy(tree["params"], "cpu"),
+            "opt_state": train.adamw_state_from_numpy(tree["opt_state"],
+                                                      "cpu")}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         "python -m trainingjob_operator_tpu_torch.workloads.bert_pretrain")
@@ -115,7 +129,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     from trainingjob_operator_tpu_torch.workloads import rendezvous
 
-    rdv, device = rendezvous.prepare_worker(args.device)
+    rdv, device = rendezvous.prepare_worker(args.device, subdir="bert")
     device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.models import bert
@@ -153,7 +167,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     state = train.CheckpointState.restore_or_init(
         rdv, {"params": params, "opt_state": opt_state, "step": 0},
         subdir="bert", layout=llama_elastic.shard_layout(rdv, cfg, mesh,
-                                                         bert))
+                                                         bert),
+        convert=from_jax_state)
     del params, opt_state
     start_step = int(state.value["step"])
     params = state.value["params"]

@@ -34,13 +34,19 @@ import torch
 from trainingjob_operator_tpu_torch import resolve_device
 
 
+def family_of(env: Mapping[str, str]) -> str:
+    """The family GEN_FAMILY names, which is also its trainer's checkpoint
+    subdir: "moe", or "llama" for any other value."""
+    return "moe" if env.get("GEN_FAMILY", "llama") == "moe" else "llama"
+
+
 def family_config(env: Mapping[str, str]) -> Tuple[str, object]:
     """(family, config) from GEN_FAMILY and the family's config name, as
     the JAX ``generate`` and ``serve`` read them: "moe" with MOE_CONFIG
     (8x7b, else tiny), any other family Llama with LLAMA_CONFIG."""
     from trainingjob_operator_tpu_torch.models import llama, moe
 
-    if env.get("GEN_FAMILY", "llama") == "moe":
+    if family_of(env) == "moe":
         return "moe", moe.CONFIGS.get(env.get("MOE_CONFIG", "tiny"),
                                       moe.MoEConfig.tiny)()
     return "llama", llama.CONFIGS.get(env.get("LLAMA_CONFIG", "tiny"),
@@ -52,7 +58,9 @@ def restore_params(cfg, device, family: str = "llama") -> Tuple[dict, int]:
     ``TRAININGJOB_CHECKPOINT_DIR`` (``<dir>/<family>``), as the sampler's
     leaves on ``device`` (compute dtype for the matmul weights), or a
     seeded random init and step 0 where there is none.  The placeholder
-    skips the AdamW moments: twice the parameters, never read here."""
+    skips the AdamW moments: twice the parameters, never read here.  A
+    checkpoint of the JAX package's trainer gives the parameters of its
+    resume image (the moments are unpickled but not converted)."""
     from trainingjob_operator_tpu_torch.models import llama, moe
     from trainingjob_operator_tpu_torch.workloads import rendezvous, train
 
@@ -62,7 +70,9 @@ def restore_params(cfg, device, family: str = "llama") -> Tuple[dict, int]:
         {"params": model.init_params(
             cfg, torch.Generator(device=device).manual_seed(0), device),
          "opt_state": train.ckpt_placeholder(), "step": 0},
-        subdir=family)
+        subdir=family,
+        convert=lambda tree: {"params": model.params_from_numpy(
+            tree["params"], cfg, "cpu")})
     return state.value["params"], int(state.value["step"])
 
 
@@ -75,7 +85,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     from trainingjob_operator_tpu_torch.workloads import rendezvous
 
-    _, device = rendezvous.prepare_worker(args.device)
+    _, device = rendezvous.prepare_worker(args.device,
+                                          subdir=family_of(os.environ))
     device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.models import decode, moe_decode

@@ -47,7 +47,9 @@ the device where ``--device`` is not given, the kernel library looks in
 the job's cache), then restores inside ``train.overlapped_restore``
 beside the kernels' warm-up (``train.warm_up``), and prints JAX's
 ``recovery_timing`` split, ``compile_s`` being the warm-up's wall time.
-JAX's executable snapshot and ``aot_or_jit`` have no counterpart: the
+A job the JAX package's trainer committed resumes from its resume image
+(``from_jax_state``; an orbax step without one is refused in the
+preamble).  JAX's executable snapshot and ``aot_or_jit`` have no counterpart: the
 eager step compiles nothing, and the kernels take no shape, so the cached
 library serves every width.
 
@@ -157,6 +159,23 @@ def shard_layout(rdv, cfg, mesh, model=None):
 
     return train.ShardLayout(rdv.process_id, rdv.num_processes,
                              state_blocks(cfg, mesh, model))
+
+
+def from_jax_state(cfg):
+    """``CheckpointState.restore_or_init``'s ``convert`` for the JAX
+    Llama (or MoE) trainer's committed tree: f32 master parameters
+    (``params_from_numpy(master=True)``) and optax's AdamW state as
+    ``train.AdamW``'s, on the CPU."""
+    from trainingjob_operator_tpu_torch.models import llama
+    from trainingjob_operator_tpu_torch.workloads import train
+
+    def convert(tree):
+        return {"params": llama.params_from_numpy(tree["params"], cfg, "cpu",
+                                                  master=True),
+                "opt_state": train.adamw_state_from_numpy(tree["opt_state"],
+                                                          "cpu")}
+
+    return convert
 
 
 @dataclasses.dataclass
@@ -306,7 +325,8 @@ def resize_cycle(ts: TrainState, watcher, *, cfg, lr: float, tp: int,
                               "opt_state": train.AdamW(params, lr).state,
                               "step": watcher.resume_step},
                     subdir="llama",
-                    layout=shard_layout(new_rdv, cfg, new_mesh))
+                    layout=shard_layout(new_rdv, cfg, new_mesh),
+                    convert=from_jax_state(cfg))
                 del params
                 ts.params = ts.state.value["params"]
                 ts.opt_state = ts.state.value["opt_state"]
@@ -389,7 +409,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     t_main = time.time()
     from trainingjob_operator_tpu_torch.workloads import rendezvous
 
-    rdv, device = rendezvous.prepare_worker(args.device)
+    rdv, device = rendezvous.prepare_worker(args.device, subdir="llama")
     device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.models import llama
@@ -457,7 +477,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         # One checkpoint path for every process of the job, as in JAX.
         return train.CheckpointState.restore_or_init(
             rdv, {"params": params, "opt_state": opt_state, "step": 0},
-            subdir="llama", layout=shard_layout(rdv, cfg, mesh))
+            subdir="llama", layout=shard_layout(rdv, cfg, mesh),
+            convert=from_jax_state(cfg))
 
     # The kernels' warm-up runs beside the restore (JAX's warm compile):
     # a cold kernel cache builds here, not inside the first step.

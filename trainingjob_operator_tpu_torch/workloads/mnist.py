@@ -98,6 +98,16 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda"
             for k, v in tree.items()}
 
 
+def from_jax_state(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``CheckpointState.restore_or_init``'s ``convert`` for the JAX
+    trainer's committed tree: the parameters and ``optax.adam``'s state
+    as ``train.AdamW``'s, on the CPU."""
+    from trainingjob_operator_tpu_torch.workloads import train as tr
+
+    return {"params": params_from_numpy(tree["params"], "cpu"),
+            "opt_state": tr.adamw_state_from_numpy(tree["opt_state"], "cpu")}
+
+
 def logits_fn(params: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
     h = torch.relu(x @ params["w1"] + params["b1"])
@@ -241,7 +251,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     opt_state = tr.AdamW(params, lr, b2=0.999, weight_decay=0.0).state
     t_setup = time.time()
     state = tr.CheckpointState.restore_or_init(
-        rdv, {"params": params, "opt_state": opt_state, "step": 0})
+        rdv, {"params": params, "opt_state": opt_state, "step": 0},
+        convert=from_jax_state)
     restore_s = time.time() - t_setup
     params, opt_state = state.value["params"], state.value["opt_state"]
     start_step = int(state.value["step"])

@@ -62,7 +62,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     from trainingjob_operator_tpu_torch.workloads import rendezvous
 
-    rdv, device = rendezvous.prepare_worker(args.device)
+    rdv, device = rendezvous.prepare_worker(args.device, subdir="moe")
     device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.models import llama, moe
@@ -113,7 +113,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     state = train.CheckpointState.restore_or_init(
         rdv, {"params": params, "opt_state": train.AdamW(params, lr).state,
               "step": 0}, subdir="moe",
-        layout=llama_elastic.shard_layout(rdv, cfg, mesh, moe))
+        layout=llama_elastic.shard_layout(rdv, cfg, mesh, moe),
+        convert=llama_elastic.from_jax_state(cfg))
     del params
     start_step = int(state.value["step"])
     params = state.value["params"]

@@ -291,11 +291,14 @@ def enable_compile_cache(rdv: Rendezvous) -> str:
 
 
 def prepare_worker(device: Optional[str] = None,
-                   rdv: Optional[Rendezvous] = None
-                   ) -> Tuple[Rendezvous, str]:
+                   rdv: Optional[Rendezvous] = None,
+                   subdir: Optional[str] = None) -> Tuple[Rendezvous, str]:
     """The preamble every port main runs first, before any CUDA call, as
     JAX's ``initialize_jax_distributed`` begins: a reservation pod holds
-    here and exits (``hold_reservation_if_needed``), the platform override
+    here and exits (``hold_reservation_if_needed``), a checkpoint path
+    that holds only the JAX package's orbax steps is refused
+    (``train.refuse_unreadable_state``; ``subdir`` as
+    ``CheckpointState.restore_or_init`` takes it), the platform override
     picks the device where ``device`` (``--device``) is None
     (``platform_device``), and the kernel cache is enabled
     (``enable_compile_cache``).  Returns the rendezvous and the device's
@@ -303,6 +306,9 @@ def prepare_worker(device: Optional[str] = None,
     once the device is resolved."""
     rdv = from_env() if rdv is None else rdv
     rdv.hold_reservation_if_needed()
+    from trainingjob_operator_tpu_torch.workloads import train
+
+    train.refuse_unreadable_state(rdv, subdir)
     device = device or platform_device()
     enable_compile_cache(rdv)
     return rdv, device

@@ -19,8 +19,10 @@ over the processes in one all-reduce before the update.
 
 Checkpoints: with ``TRAININGJOB_CHECKPOINT_DIR`` set, the full state
 ``{"params", "stats", "opt_state", "step"}`` is restored from the
-worker's per-replica path (or initialised) and saved every 10 steps and
-at the last, so the run after a restart equals an uninterrupted one.  No
+worker's per-replica path (or initialised; a state the JAX trainer
+committed restores from its resume image: ``from_jax_state``) and saved
+every 10 steps and at the last, so the run after a restart equals an
+uninterrupted one.  No
 SIGTERM handler, as in JAX (``TRAININGJOB_KILL_AT_STEP``:
 ``train.kill_at_step``).
 
@@ -120,6 +122,22 @@ def make_step(params, stats: Dict[str, Any], cfg, *, lr: float,
     return step
 
 
+def from_jax_state(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``CheckpointState.restore_or_init``'s ``convert`` for the JAX
+    trainer's committed tree: the parameters and batch-norm statistics
+    (conv weights HWIO -> OIHW) and ``optax.sgd``'s momentum trace as
+    ``train.SGD``'s, on the CPU."""
+    from trainingjob_operator_tpu_torch.models import resnet
+    from trainingjob_operator_tpu_torch.workloads import train
+
+    params, stats = resnet.params_from_numpy(tree["params"], tree["stats"],
+                                             "cpu")
+    opt_state = train.sgd_state_from_numpy(
+        tree["opt_state"], "cpu",
+        convert=lambda t: resnet.params_from_numpy(t, None, "cpu")[0])
+    return {"params": params, "stats": stats, "opt_state": opt_state}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         "python -m trainingjob_operator_tpu_torch.workloads.resnet_dp")
@@ -164,7 +182,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     params, stats = resnet.init_params(cfg, generator, device)
     state = train.CheckpointState.restore_or_init(
         rdv, {"params": params, "stats": stats,
-              "opt_state": train.SGD(params, lr).state, "step": 0})
+              "opt_state": train.SGD(params, lr).state, "step": 0},
+        convert=from_jax_state)
     del params, stats
     start_step = int(state.value["step"])
     params, stats = state.value["params"], state.value["stats"]

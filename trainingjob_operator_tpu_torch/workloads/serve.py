@@ -527,7 +527,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     from trainingjob_operator_tpu_torch.workloads import rendezvous
 
-    _, device = rendezvous.prepare_worker(args.device)
+    from trainingjob_operator_tpu_torch.workloads.generate import family_of
+
+    _, device = rendezvous.prepare_worker(args.device,
+                                          subdir=family_of(os.environ))
     device = resolve_device(device)
 
     from trainingjob_operator_tpu_torch.obs.telemetry import TelemetryEmitter

@@ -27,8 +27,16 @@ kept (orbax ``max_to_keep=2``).  A sharded job's step directory holds
 instead one ``shard-<rank>.pt`` per process: its blocks and their global
 index ranges (``ShardLayout``), read back at any width.  Beside them,
 ``resume-image.bin`` (one process only) is the JAX package's container:
-``pickle((step, tree))`` of numpy leaves and a sha256 footer.  A JAX
-(orbax) checkpoint cannot be read by the port.
+``pickle((step, tree))`` of numpy leaves and a sha256 footer.
+
+A job the JAX package's worker committed resumes from the same path: the
+JAX worker's resume image (a single-process job's, beside its orbax step
+directories) is read without optax and converted by the workload's
+``convert`` (``jax_state``, ``CheckpointState.restore_or_init``).  Orbax
+step directories themselves are never read, pruned or committed over:
+where one is the newest committed state and no image is beside it (a
+multi-process JAX job, or ``TRAININGJOB_CKPT_SNAPSHOT=0``), the worker is
+refused before it touches its device (``refuse_unreadable_state``).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from trainingjob_operator_tpu_torch.obs.logs import (
 from trainingjob_operator_tpu_torch.obs.telemetry import TelemetryEmitter
 from trainingjob_operator_tpu_torch.obs.trace import tracer_from_env
 from trainingjob_operator_tpu_torch.utils.metrics import METRICS
+from trainingjob_operator_tpu_torch.workloads import jax_state
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -288,8 +297,9 @@ class CheckpointState:
     @classmethod
     def restore_or_init(cls, rdv, init_value: Dict[str, Any],
                         subdir: Optional[str] = None,
-                        layout: Optional["ShardLayout"] = None
-                        ) -> "CheckpointState":
+                        layout: Optional["ShardLayout"] = None,
+                        convert: Optional[Callable[[Any], Dict[str, Any]]]
+                        = None) -> "CheckpointState":
         """The newest committed step under the worker's path, restored onto
         ``init_value``'s devices and dtypes, or ``init_value`` itself where
         there is none.  The path is ``<checkpoint_dir>/<subdir>`` (one path
@@ -306,18 +316,29 @@ class CheckpointState:
         of the job's, and saves write them as one shard of the step
         (``ShardLayout``).  A restore, with or without one, reads the
         ranges it needs from whatever the step holds: the shards of any
-        width, or the single-process files."""
+        width, or the single-process files.
+
+        Where the port has committed no step of its own and the JAX
+        package's worker has, its resume image restores
+        (``_restore_jax``): ``convert`` maps the JAX trainer's tree to the
+        port's (CPU tensors, the keys of ``init_value``)."""
         path = _checkpoint_path(rdv, subdir)
         if not path:
             return cls("", init_value, layout)
         os.makedirs(path, exist_ok=True)
         steps = committed_steps(path)
-        if not steps:
-            return cls(path, init_value, layout)
-        latest = steps[0]
         blocks = layout.blocks if layout is not None else {}
-        skip = [k for k, v in init_value.items() if v is _PLACEHOLDER]
         reasons: List[str] = []
+        if not steps:
+            jax_steps = jax_state.orbax_steps(path)
+            if not jax_steps:
+                return cls(path, init_value, layout)
+            state = cls(path, _restore_jax(path, jax_steps[0], init_value,
+                                           blocks, convert, reasons), layout)
+            state.fallback = reasons[-1] if reasons else "jax_image"
+            return state
+        latest = steps[0]
+        skip = [k for k, v in init_value.items() if v is _PLACEHOLDER]
         if skip:
             template = {k: v for k, v in init_value.items() if k not in skip}
             restored = _read_step(path, latest, template, blocks)
@@ -337,11 +358,12 @@ class CheckpointState:
 
     @staticmethod
     def has_checkpoint(rdv, subdir: Optional[str] = None) -> bool:
-        """Whether ``restore_or_init`` would restore a committed step (then
-        the values of its template are never read, only their shapes,
-        dtypes and devices)."""
+        """Whether ``restore_or_init`` would restore a committed step, the
+        port's or the JAX package's (then the values of its template are
+        never read, only their shapes, dtypes and devices)."""
         path = _checkpoint_path(rdv, subdir)
-        return bool(path and committed_steps(path))
+        return bool(path and (committed_steps(path)
+                              or jax_state.orbax_steps(path)))
 
     def snapshot_mode(self) -> bool:
         """True when saves take the snapshot-donate pipeline: not across
@@ -350,12 +372,14 @@ class CheckpointState:
                 and (self.layout is None or self.layout.world == 1))
 
     def _write_files(self, step: int, host_value: Dict[str, Any],
-                     cancel: Optional[threading.Event] = None) -> None:
+                     cancel: Optional[threading.Event] = None) -> bool:
+        """Write and commit step ``step``; False where it was not
+        committed (``_commit``)."""
         if self.layout is None:
-            _write_step(self._dir, step, host_value, self.KEEP, cancel)
-        else:
-            _write_shard(self._dir, step, host_value, self.KEEP, self.layout,
-                         cancel)
+            return _write_step(self._dir, step, host_value, self.KEEP,
+                               cancel)
+        return _write_shard(self._dir, step, host_value, self.KEEP,
+                            self.layout, cancel)
 
     def save(self, value: Dict[str, Any], wait: bool = False,
              tracer: Any = None, trace_parent: Any = None) -> float:
@@ -394,11 +418,12 @@ class CheckpointState:
             with _span(tracer, "ckpt.write", parent=trace_parent,
                        step=step):
                 host_value = _snapshot_to_host(value)
-                self._write_files(step, host_value)
-            with self._cv:
-                self.committed_step = step
-            if self.snapshot_mode():
-                _write_resume_image(self._dir, step, host_value)
+                committed = self._write_files(step, host_value)
+            if committed:
+                with self._cv:
+                    self.committed_step = step
+                if self.snapshot_mode():
+                    _write_resume_image(self._dir, step, host_value)
         else:
             with self._cv:
                 self._surface_error_locked()
@@ -444,7 +469,8 @@ class CheckpointState:
     def _write(self, step: int, host_value: Dict[str, Any], tracer: Any,
                parent: Any) -> None:
         with _span(tracer, "ckpt.write", parent=parent, step=step):
-            self._write_files(step, host_value, self._cancel)
+            if not self._write_files(step, host_value, self._cancel):
+                return
         with self._cv:
             self.committed_step = step
         # After the commit, so the image is never newer than the step
@@ -473,6 +499,21 @@ class CheckpointState:
         """Wait for the background write in flight; call before exit."""
         if self._dir:
             self._drain()
+
+
+def refuse_unreadable_state(rdv, subdir: Optional[str]) -> None:
+    """Raise ``jax_state.UnreadableJaxState`` where the worker's path holds
+    no step of the port's and the JAX package's newest committed step has
+    no resume image beside it.  Reads directory listings only: nothing is
+    created, no device is touched."""
+    path = _checkpoint_path(rdv, subdir)
+    if not path or committed_steps(path):
+        return
+    steps = jax_state.orbax_steps(path)
+    if steps and not os.path.exists(os.path.join(path, jax_state.IMAGE)):
+        raise jax_state.refusal(
+            path, steps[0], f"no {jax_state.IMAGE}: a multi-process JAX "
+            "job, or TRAININGJOB_CKPT_SNAPSHOT=0")
 
 
 def _checkpoint_path(rdv, subdir: Optional[str]) -> str:
@@ -537,13 +578,15 @@ def _check(cancel: Optional[threading.Event]) -> None:
 
 
 def committed_steps(path: str) -> List[int]:
-    """The committed step directories under ``path``, newest first."""
+    """The port's committed step directories under ``path``, newest first
+    (the JAX package's orbax steps are not among them)."""
     try:
         names = os.listdir(path)
     except FileNotFoundError:
         return []
     return sorted((int(n) for n in names
-                   if n.isdigit() and os.path.isdir(os.path.join(path, n))),
+                   if n.isdigit() and os.path.isdir(os.path.join(path, n))
+                   and not jax_state.is_orbax_step(os.path.join(path, n))),
                   reverse=True)
 
 
@@ -559,11 +602,12 @@ class ShardLayout:
 
 
 def _write_dir(path: str, step: int, files: Dict[str, Any], keep: int,
-               cancel: Optional[threading.Event] = None) -> None:
+               cancel: Optional[threading.Event] = None) -> bool:
     """Write ``files`` (name -> object, one ``torch.save`` each) as step
     directory ``<path>/<step>`` under a temporary name, then commit it
-    (``_commit``).  Once ``cancel`` is set, the write stops before its next
-    file, removes what it wrote and raises ``_Superseded``."""
+    (``_commit``, whose result this returns).  Once ``cancel`` is set, the
+    write stops before its next file, removes what it wrote and raises
+    ``_Superseded``."""
     tmp = os.path.join(path, f".tmp-{step}-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -575,14 +619,22 @@ def _write_dir(path: str, step: int, files: Dict[str, Any], keep: int,
     except _Superseded:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    _commit(path, step, tmp, keep)
+    return _commit(path, step, tmp, keep)
 
 
-def _commit(path: str, step: int, tmp: str, keep: int) -> None:
+def _commit(path: str, step: int, tmp: str, keep: int) -> bool:
     """Make the written directory ``tmp`` step ``step`` by ``os.replace``
     (a step written again replaces the old directory), then drop all but
-    the ``keep`` newest committed steps."""
+    the ``keep`` newest of the port's committed steps; True.  Where the
+    name holds the JAX package's orbax step (a job resumed from an image
+    older than it), that directory stays: ``tmp`` is removed and the step
+    not committed (False)."""
     final = os.path.join(path, str(step))
+    if jax_state.is_orbax_step(final):
+        shutil.rmtree(tmp, ignore_errors=True)
+        print(f"ckpt: step {step} not committed: {final} holds the JAX "
+              f"package's orbax step", flush=True)
+        return False
     old = None
     if os.path.exists(final):
         old = os.path.join(path, f".old-{step}-{os.getpid()}")
@@ -592,13 +644,14 @@ def _commit(path: str, step: int, tmp: str, keep: int) -> None:
         shutil.rmtree(old, ignore_errors=True)
     for stale in committed_steps(path)[keep:]:
         shutil.rmtree(os.path.join(path, str(stale)), ignore_errors=True)
+    return True
 
 
 def _write_step(path: str, step: int, host_value: Dict[str, Any],
-                keep: int, cancel: Optional[threading.Event] = None) -> None:
+                keep: int, cancel: Optional[threading.Event] = None) -> bool:
     """The single-process format: one ``<key>.pt`` per top-level item of
     ``host_value`` in step directory ``<path>/<step>`` (``_write_dir``)."""
-    _write_dir(path, step, {f"{key}.pt": item
+    return _write_dir(path, step, {f"{key}.pt": item
                             for key, item in host_value.items()},
                keep, cancel)
 
@@ -609,18 +662,19 @@ def _shard_name(rank: int) -> str:
 
 def _write_shard(path: str, step: int, host_value: Dict[str, Any],
                  keep: int, layout: ShardLayout,
-                 cancel: Optional[threading.Event] = None) -> None:
+                 cancel: Optional[threading.Event] = None) -> bool:
     """The sharded format: each process writes ``shard-<rank>.pt``, its
     blocks with their global index ranges (``ShardLayout``), into the
     step's shared temporary directory; rank 0 commits the step only after
     a barrier every rank passes once its shard is in place, so a step that
     lacks a shard is never committed.  Alone (world 1) a process writes
-    and commits as ``_write_dir`` does."""
+    and commits as ``_write_dir`` does.  Returns ``_commit``'s result (True
+    on the ranks that do not commit)."""
     payload = {"world": layout.world, "rank": layout.rank,
                "value": host_value, "blocks": layout.blocks}
     if layout.world == 1:
-        _write_dir(path, step, {_shard_name(0): payload}, keep, cancel)
-        return
+        return _write_dir(path, step, {_shard_name(0): payload}, keep,
+                          cancel)
     import torch.distributed as dist
 
     tmp = os.path.join(path, f".tmp-{step}")
@@ -632,10 +686,10 @@ def _write_shard(path: str, step: int, host_value: Dict[str, Any],
     torch.save(payload, f"{target}.part")
     os.replace(f"{target}.part", target)
     dist.barrier()
-    if layout.rank == 0:
-        _commit(path, step, tmp, keep)
+    committed = layout.rank != 0 or _commit(path, step, tmp, keep)
     # No rank saves or restores again before the commit is done.
     dist.barrier()
+    return committed
 
 
 def _step_pieces(path: str, step: int, keys) -> List[tuple]:
@@ -747,15 +801,6 @@ def _read_step(path: str, step: int, template: Dict[str, Any],
     return _assemble(template, blocks, pieces)
 
 
-#: The flat host snapshot of the latest committed step, beside the step
-#: directories.
-_RESUME_IMAGE = "resume-image.bin"
-#: Bytes of the sha256 footer after the pickle: read verifies it before
-#: unpickling, so a torn or flipped image is "corrupt", not an unpickling
-#: error or silently wrong state.
-_CKPT_SHA_LEN = 32
-
-
 def resume_fastpath_enabled() -> bool:
     """Whether the resume fast path is on: a restore reads the resume image
     first, and ``overlapped_restore`` runs the warm-up beside the restore.
@@ -806,7 +851,7 @@ def _write_resume_image(path: str, step: int, host_value: Any,
     write stopped by ``cancel`` raises ``_Superseded``."""
     if not path:
         return
-    target = os.path.join(path, _RESUME_IMAGE)
+    target = os.path.join(path, jax_state.IMAGE)
     tmp = f"{target}.tmp-{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
@@ -850,29 +895,17 @@ def _load_resume_image(path: str, latest: int, template: Any,
         print(f"resume: image fallback reason={reason}{suffix}; "
               f"using the step directories", flush=True)
 
-    target = os.path.join(path, _RESUME_IMAGE)
-    if not os.path.exists(target):
-        fall("missing")
-        return None
     try:
-        with open(target, "rb") as f:
-            raw = f.read()
-    except OSError as exc:
-        fall("corrupt", f"read failed: {exc!r}")
-        return None
-    if os.environ.get(constants.CKPT_FAULT_ENV, "") == "resume_image" and raw:
-        raw = bytes([raw[0] ^ 0xFF]) + raw[1:]
-    if len(raw) <= _CKPT_SHA_LEN:
-        fall("corrupt", f"truncated ({len(raw)} bytes)")
-        return None
-    body, footer = raw[:-_CKPT_SHA_LEN], raw[-_CKPT_SHA_LEN:]
-    if hashlib.sha256(body).digest() != footer:
-        fall("corrupt", "sha256 mismatch")
+        raw = jax_state.read_verified(
+            path, os.environ.get(constants.CKPT_FAULT_ENV, "")
+            == "resume_image")
+    except jax_state.ImageError as exc:
+        fall(exc.reason, exc.detail)
         return None
     try:
         # The image was written by an earlier run of this job, behind a
         # verified footer: the same trust boundary as the checkpoint.
-        step, host_value = pickle.loads(body)
+        step, host_value = pickle.loads(memoryview(raw)[:-jax_state.SHA_LEN])
     # Unpickling a verified but wrong payload can raise nearly anything;
     # every failure is the corrupt rung.
     except Exception as exc:
@@ -931,6 +964,53 @@ def _restore_with_fallback(path: str, latest: int, template: Any,
                   f"(latest {latest} unreadable)", flush=True)
         return restored
     raise first_err
+
+
+def _restore_jax(path: str, newest: int, init_value: Dict[str, Any],
+                 blocks: Dict[str, Any],
+                 convert: Optional[Callable[[Any], Dict[str, Any]]],
+                 reasons: List[str]) -> Dict[str, Any]:
+    """The state the JAX package's worker committed at ``path`` (its newest
+    orbax step ``newest``), from its resume image: ``convert`` maps the
+    JAX trainer's tree to the port's, the step is the image's, and each
+    leaf of ``init_value`` but its ``ckpt_placeholder()`` items is
+    restored onto the template (this process's block where ``blocks``
+    gives one).  An image older than ``newest`` (a preemption between the
+    orbax commit and the image's write) restores its own step, counted as
+    ``jax_stale`` in ``trainingjob_resume_image_fallbacks_total``.  An
+    image that cannot be read (its reason counted there too) raises
+    ``jax_state.UnreadableJaxState``: orbax is the one other copy."""
+    if convert is None:
+        raise jax_state.refusal(path, newest, "this entry point converts "
+                                "no state of the JAX package's")
+    try:
+        step, tree, times = jax_state.read_image(path)
+    except jax_state.ImageError as exc:
+        _note_fallback_metric("trainingjob_resume_image_fallbacks_total",
+                              exc.reason, reasons)
+        raise jax_state.refusal(path, newest, f"{jax_state.IMAGE}: {exc}"
+                                ) from exc
+    if step < newest:
+        _note_fallback_metric("trainingjob_resume_image_fallbacks_total",
+                              "jax_stale", reasons)
+        print(f"resume: the JAX package's resume image holds step {step}, "
+              f"its newest orbax step is {newest}; restoring step {step}",
+              flush=True)
+    t0 = time.perf_counter()
+    template = {k: v for k, v in init_value.items() if v is not _PLACEHOLDER}
+    converted = {k: v for k, v in dict(convert(tree), step=step).items()
+                 if k in template}
+    restored = _assemble(template, blocks, [(converted, None)])
+    for k in init_value:
+        if k not in template:
+            restored[k] = _PLACEHOLDER
+    print(f"resume: jax image bytes={times['bytes']:.0f} "
+          f"read_s={times['read_s']:.3f} "
+          f"unpickle_s={times['unpickle_s']:.3f} "
+          f"convert_s={time.perf_counter() - t0:.3f}", flush=True)
+    print(f"resume: step {step} restored from the JAX package's resume "
+          f"image", flush=True)
+    return restored
 
 
 class GracefulShutdown:
