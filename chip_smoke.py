@@ -25,6 +25,15 @@ script exits non-zero):
    memory.  Two cases are unmasked (``causal=False``, B1 T4096 H32 D128,
    MHA and GQA 32/8): a ring block before the diagonal, timed against
    SDPA with ``is_causal=False`` and bound with T^2 visible pairs.
+2a. train_124m_f32: the trainer's step at the 124M config in float32
+   (``LLAMA_DTYPE=float32``: head dim 64, so attention takes the f32-FMA
+   kernels), seq 1024, batch 8, remat "none", TF32 off for cuBLAS and
+   cuDNN, 8 steps on one batch: the loss falls; the first F32_PLAIN_STEPS
+   losses equal, within F32_PLAIN_RTOL, a run whose attention goes
+   through the plain version (patched in this script only); launches as
+   ``train_launches`` counts them, none on the tensor cores.  Step time
+   (median of steps 2-8), tokens/s, peak memory, the idle share and the
+   three flash kernels' device ms a step.
 3. tiny_equivalence: the tiny config in fp32 through the kernels; every
    request of a DecodeService run must get exactly the tokens ``generate``
    gives for its prompt.
@@ -215,12 +224,15 @@ script exits non-zero):
    phase of 18-20 must launch none of the port's kernels.
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
+``--phases kernel_checks,train_124m_f32`` runs the device phase and only
+those (no kernels or ok line): the flash kernels measured alone.
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
 dK/dV, with their launches on the paths driven (the 7B phases 5-9b and 13,
 the 124M trainer of phases 10-11 (10a and 10b too) and 14 and the Mixtral-width phases
-15-16a run the bf16 tensor-core kernels, the tiny fp32 phases 3-4a and 12
-and the tiny MoE trainer of phase 17 (head dim 16) the f32-FMA ones; a
+15-16a run the bf16 tensor-core kernels, the 124M float32 trainer of phase
+2a, the tiny fp32 phases 3-4a and 12 and the tiny MoE trainer of phase 17
+(head dim 16) the f32-FMA ones; a
 trainer process reports its launches when it returns) and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when CUDA is unavailable or the package is not
@@ -492,13 +504,19 @@ FLASH_CASES = [
     # block runs the kernels unmasked, MHA and GQA 32/8.
     (1, 4096, 32, 32, 128, False, 0, "bfloat16"),
     (1, 4096, 32, 8, 128, False, 0, "bfloat16"),
+    # float32 runs take the f32-FMA kernels at every head dim: the 124M
+    # trainer at LLAMA_DTYPE=float32 (train_124m_f32), GQA 32/8 at head dim
+    # 128, and a window.
+    (8, 1024, 12, 12, 64, True, 0, "float32"),
+    (1, 2048, 32, 8, 128, True, 0, "float32"),
+    (1, 2048, 32, 32, 128, True, 256, "float32"),
 ]
 #: FLASH_CASES entry of the training path's attention shape.
 TRAIN_FLASH_CASE = 6
 
 
-#: FLASH_CASES entry that exercises the f32-FMA kernels.
-FMA_FLASH_CASE = 5
+#: FLASH_CASES entry of the f32-FMA kernels' main path (train_124m_f32).
+FMA_FLASH_CASE = 12
 
 
 def flash_iters(T: int) -> int:
@@ -2391,10 +2409,12 @@ def serve_7b(torch, serve, params, cfg, family="llama"):
         "launches": counts}
 
 
-def profile_steps(torch, step, n: int = 5):
+def profile_steps(torch, step, n: int = 5, pick=None):
     """Where one call of ``step`` spends its time: ``n`` calls timed on the
     host clock, then the same under ``torch.profiler`` for device time by
-    kernel.  The idle share is 1 - device time / unprofiled wall time."""
+    kernel.  The idle share is 1 - device time / unprofiled wall time.
+    ``pick`` (label -> substring of a kernel's name) adds the device ms a
+    call of the kernels each label names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2418,12 +2438,16 @@ def profile_steps(torch, step, n: int = 5):
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
+    picked = {label: sum(e.self_device_time_total for e in kernels
+                         if part in e.key) / 1e3 / n
+              for label, part in (pick or {}).items()}
     return {
         "wall_ms": wall_ms, "device_ms": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
         "kernels_per_step": sum(e.count for e in kernels) / n,
         "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3 / n,
-                 "calls": e.count / n} for e in top]}
+                 "calls": e.count / n} for e in top],
+        **({"picked_ms": picked} if pick else {})}
 
 
 def generate_7b(torch, decode, params, cfg):
@@ -2935,6 +2959,95 @@ def width_steps(torch, step, steps: int) -> dict:
             "launches": counts}
 
 
+#: Steps of train_124m_f32 held against the same steps with attention
+#: through the plain PyTorch version, and the relative limit: both run the
+#: same f32 GEMMs (TF32 off) on the same numbers, and the flash kernels
+#: differ from the plain attention only in the order of f32 sums.
+F32_PLAIN_STEPS = 3
+F32_PLAIN_RTOL = 1e-5
+#: Device kernels of the f32-FMA flash route, by a part of their names.
+FMA_KERNEL_NAMES = {"flash_attention_fwd": "flash_fwd_kernel",
+                    "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+                    "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+@contextlib.contextmanager
+def plain_attention(llama, flash):
+    """The model's attention through the plain PyTorch version (autograd
+    through its einsums), for this script's reference runs only."""
+    real = llama.flash_attention
+
+    def plain(q, k, v, *, causal=True, scale=None, window=0):
+        return flash.flash_reference_with_lse(q, k, v, causal=causal,
+                                              scale=scale, window=window)[0]
+    llama.flash_attention = plain
+    try:
+        yield
+    finally:
+        llama.flash_attention = real
+
+
+def train_124m_f32(torch, llama, llama_elastic, train, flash):
+    """The 124M trainer's step (``llama_elastic.make_step_fn``) at float32
+    (``LLAMA_CONFIG=124m LLAMA_DTYPE=float32``): head dim 64, so every
+    flash launch takes the f32-FMA kernels.  Seq 1024, batch 8, remat
+    "none", 8 steps on one batch, TF32 off for cuBLAS and cuDNN.  Gates:
+    the loss falls; the first F32_PLAIN_STEPS losses equal, within
+    F32_PLAIN_RTOL, those of a run from the same parameters whose
+    attention goes through the plain version (``plain_attention``);
+    launches as ``train_launches`` counts them, none on the tensor
+    cores.  Step time (median of steps 2-8), tokens/s, peak memory, the
+    idle share and the flash kernels' device ms a step."""
+    dev = torch.device("cuda")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("train_124m_f32 needs TF32 off")
+    cfg = dataclasses.replace(llama.LlamaConfig.base_124m(),
+                              dtype="float32")
+    seq, batch, steps, lr = 1024, 8, 8, 3e-4
+    init = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev, master=True)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(3), device=dev)
+
+    def step_fn():
+        params = train.trainable_copy(init, dev)
+        return llama_elastic.make_step_fn(params, cfg, accum=1, lr=lr,
+                                          remat="none")
+
+    with plain_attention(llama, flash):
+        plain_fn = step_fn()
+        plain = width_steps(torch, lambda: plain_fn(tokens), F32_PLAIN_STEPS)
+    del plain_fn
+    torch.cuda.empty_cache()
+    kernel_fn = step_fn()
+    run = width_steps(torch, lambda: kernel_fn(tokens), steps)
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(run["losses"][:F32_PLAIN_STEPS], plain["losses"]))
+    if not rel <= F32_PLAIN_RTOL:
+        raise AssertionError(f"124M f32 train: losses {run['losses']} vs "
+                             f"plain attention {plain['losses']}")
+    per_step = train_launches(cfg.n_layers, "none", 1)
+    if run["launches"] != {k: n * steps for k, n in per_step.items()}:
+        raise AssertionError(f"124M f32 train: launches {run['launches']}, "
+                             f"expected {per_step} per step x {steps}")
+    if any(plain["launches"][key] for key in FMA_KERNEL_NAMES):
+        raise AssertionError(f"124M f32 train: the plain-attention run "
+                             f"launched {plain['launches']}")
+    profile = profile_steps(torch, lambda: kernel_fn(tokens), n=2,
+                            pick=FMA_KERNEL_NAMES)
+    return {"n_layers": cfg.n_layers, "n_params": llama.num_params(cfg),
+            "dtype": cfg.dtype, "head_dim": cfg.head_dim, "seq": seq,
+            "global_batch": batch, "remat": "none", "lr": lr,
+            "allow_tf32": {"cuda.matmul": False, "cudnn": False},
+            **run, "tokens_per_s": batch * seq / run["step_s_median"],
+            "plain_attention_losses": plain["losses"],
+            "plain_loss_max_rel_err": rel, "plain_loss_rtol": F32_PLAIN_RTOL,
+            "launches_per_step": per_step, "step_profile": profile,
+            "flash_ms_per_step": profile["picked_ms"]}
+
+
 def bert_base(torch, bert, bert_pretrain, train):
     """BERT-base (vocab 30522, dim 768, 12 layers, 12 heads, ffn 3072) in
     bf16 on one card, the trainer's step (``bert_pretrain.make_step``:
@@ -3298,7 +3411,19 @@ def summary(name, route, source, replaces, cases, main_case, launches):
         "cases": cases}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--phases", default="",
+        help="comma-separated subset of kernel_checks,train_124m_f32 to run "
+             "after the device phase, for measuring the flash kernels alone "
+             "(default: every phase, ending in the kernels and ok lines)")
+    args = parser.parse_args(argv)
+    only = set(filter(None, args.phases.split(","))) or None
+    if only and not only <= {"kernel_checks", "train_124m_f32"}:
+        parser.error(f"--phases: unknown {sorted(only)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -3348,13 +3473,23 @@ def main() -> int:
           "build_s": build_s, "build": _build.found["how"],
           "library": lib_path.name, "ptxas": ptxas})
 
-    rms_cases = check_rmsnorm(torch, F, fused)
-    flash_cases = check_flash(torch, F, flash)
-    dq_cases, dkv_cases = check_flash_bwd(torch, F, flash)
-    emit({"phase": "kernel_checks", "device": name, "nvidia_smi": smi,
-          "rmsnorm_fwd": rms_cases, "flash_attention_fwd": flash_cases,
-          "flash_attention_bwd_dq": dq_cases,
-          "flash_attention_bwd_dkv": dkv_cases})
+    if only is None or "kernel_checks" in only:
+        rms_cases = check_rmsnorm(torch, F, fused)
+        flash_cases = check_flash(torch, F, flash)
+        dq_cases, dkv_cases = check_flash_bwd(torch, F, flash)
+        emit({"phase": "kernel_checks", "device": name, "nvidia_smi": smi,
+              "rmsnorm_fwd": rms_cases, "flash_attention_fwd": flash_cases,
+              "flash_attention_bwd_dq": dq_cases,
+              "flash_attention_bwd_dkv": dkv_cases})
+    if only is None or "train_124m_f32" in only:
+        trained_f32 = train_124m_f32(torch, llama, llama_elastic, train,
+                                     flash)
+        emit({"phase": "train_124m_f32", "device": name, "nvidia_smi": smi,
+              **trained_f32})
+        torch.cuda.empty_cache()
+    if only is not None:
+        emit({"phases": sorted(only), "device": name})
+        return 0
 
     tiny = tiny_equivalence(torch, llama, decode, serve)
     emit({"phase": "tiny_equivalence", **tiny})
@@ -3491,9 +3626,10 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # Launches on every path driven (each from zeroed counters): the 7B
-    # paths and the 124M trainer run the bf16 tensor-core kernels, the tiny
-    # fp32 ones the f32-FMA kernels.
-    paths = [served, generated, trained, remat["attn"], remat["dots"],
+    # paths and the bf16 124M trainer run the tensor-core kernels, the
+    # 124M trainer at float32 and the tiny configs the f32-FMA kernels.
+    paths = [trained_f32, served, generated, trained, remat["attn"],
+             remat["dots"],
              sharded, ringed, sp_run, resumed, restarts, handoff, tel, cross,
              resized,
              ladder,
