@@ -234,6 +234,62 @@ def test_flash_backward_kernels_match_plain(dev, causal, H, Hkv, T, D,
                                              **opts)))
 
 
+@pytest.mark.parametrize("layout", ["bthd", "bhtd"])
+@pytest.mark.parametrize("T", [1000, 1023])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 256)])
+@pytest.mark.parametrize("H,Hkv", [(32, 8), (8, 8)])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 32)])
+def test_fma_forward_and_dkv_match_plain(dev, dtype, D, H, Hkv, causal,
+                                         window, T, layout):
+    # The f32-FMA forward and dK/dV (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+    # against their plain versions at chip_smoke's FWD_TOL / BWD_TOL, with
+    # ragged T, GQA, a window and, in the "bhtd" layout, [B, H, T, D]
+    # storage read by stride through the [B, T, H, D] view.  GQA at batch 1
+    # gives dK/dV a grid smaller than the card, which dkv_plan splits; MHA
+    # at batch 8 does not.
+    g = torch.Generator(device=dev).manual_seed(7)
+    B = 1 if H != Hkv else 8
+
+    def make(heads):
+        if layout == "bhtd":
+            return torch.randn(B, heads, T, D, generator=g, device=dev) \
+                .to(dtype).transpose(1, 2)
+        return torch.randn(B, T, heads, D, generator=g, device=dev).to(dtype)
+    q, k, v, do = make(H), make(Hkv), make(Hkv), make(H)
+    assert flash.kernel_route(dtype, D) == "fma"
+    assert not any(flash.fwd_plan(q, k, v)["copies"].values())
+    assert (flash.dkv_plan(q, k, v, do)["splits"] > 1) == (H != Hkv)
+    opts = dict(causal=causal, scale=D ** -0.5, window=window)
+    ops.reset_launch_counts()
+    out, lse = flash.flash_kernel_with_lse(q, k, v, **opts)
+    delta = flash.flash_delta(do, out)
+    dk, dv = flash.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **opts)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    assert counts["flash_attention_fwd_wgmma"] == 0
+    assert counts["flash_attention_bwd_dkv_wgmma"] == 0
+    key = str(dtype).split(".")[-1]
+    want, want_lse = flash.flash_reference_with_lse(q, k, v, **opts)
+    check = smoke.fwd_check(torch, out, want, key)
+    assert check["ok"], check
+    torch.testing.assert_close(lse, want_lse, rtol=0,
+                               atol=smoke.LSE_ATOL[key])
+    want_dk, want_dv = flash.flash_bwd_dkv_reference(q, k, v, do, lse,
+                                                     delta, **opts)
+    for got, ref in ((dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        check = smoke.grad_check(torch, got, ref, key)
+        assert check["ok"], check
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dk, dv), flash.flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                             **opts)))
+
+
 def test_flash_autograd_goes_through_the_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(4)
     q, k, v = (torch.randn(1, 40, 4, 16, generator=g, device=dev)

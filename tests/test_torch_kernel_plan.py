@@ -81,11 +81,114 @@ def test_dq_grid_issues_the_heaviest_query_tiles_first(T, tiles):
 
 def test_fma_grids_are_those_of_the_f32_kernels():
     q, k, v = _qkv(2, 130, 4, 2, 16, torch.float32)
-    assert flash.fwd_plan(q, k, v)["grid"] == (3, 8)
+    # Forward: (b, h) in x, 64-row query tiles in y, the last first.
+    assert flash.fwd_plan(q, k, v)["grid"] == (8, 3)
+    assert flash.fwd_plan(q, k, v)["tile_order"] == [2, 1, 0]
+    # dQ (unchanged kernel): 64-row query tiles in x, (b, h) in y.
     assert flash.dq_plan(q, k, v, q)["grid"] == (3, 8)
-    assert flash.dkv_plan(q, k, v, q)["grid"] == (3, 4)
-    assert flash.fwd_plan(q, k, v)["tile_order"] == [0, 1, 2]
     assert flash.dq_plan(q, k, v, q)["tile_order"] == [0, 1, 2]
+    # dK/dV: (b, KV head) in x, 64-row KV tiles in y, tile 0 first; 12
+    # CTAs are far fewer than the card holds, so each KV tile's five 32-row
+    # query tiles are split over 4 CTAs in z.
+    assert flash.dkv_plan(q, k, v, q)["grid"] == (4, 3, 4)
+    assert flash.dkv_plan(q, k, v, q)["tile_order"] == [0, 1, 2]
+
+
+#: (dtype, D) -> forward (query rows, keys) a tile and warps, dK/dV (KV
+#: rows, query rows) a step and warps: the FwdShape and DkvShape of
+#: csrc/flash_fwd.cu and csrc/flash_bwd.cu.
+FMA_SHAPES = {
+    (torch.float32, 16): ((64, 32), 2, (64, 32), 2),
+    (torch.bfloat16, 16): ((64, 32), 2, (64, 32), 2),
+    (torch.float32, 32): ((128, 32), 4, (128, 32), 4),
+    (torch.bfloat16, 32): ((128, 32), 4, (128, 32), 4),
+    (torch.float32, 64): ((64, 64), 4, (64, 64), 4),
+    (torch.float32, 128): ((64, 64), 4, (64, 32), 4),
+}
+
+
+@pytest.mark.parametrize("dtype,D", list(FMA_SHAPES))
+@pytest.mark.parametrize("T", [1000, 1023, 1024, 2048])
+def test_fma_tiles_by_head_dim(dtype, D, T):
+    fwd_tile, fwd_warps, dkv_tile, dkv_warps = FMA_SHAPES[dtype, D]
+    B, H, Hkv = 8, 12, 4
+    q, k, v = _qkv(B, T, H, Hkv, D, dtype)
+    fwd = flash.fwd_plan(q, k, v)
+    assert (fwd["kernel"], fwd["tile"], fwd["warps"]) == (
+        "fma", fwd_tile, fwd_warps)
+    n_q = -(-T // fwd_tile[0])
+    assert fwd["grid"] == (B * H, n_q)
+    dkv = flash.dkv_plan(q, k, v, q)
+    assert (dkv["kernel"], dkv["tile"], dkv["warps"]) == (
+        "fma", dkv_tile, dkv_warps)
+    n_kv = -(-T // dkv_tile[0])
+    # Split only where B * Hkv * n_kv CTAs are fewer than the card holds.
+    splits = dkv["splits"]
+    slots = flash.FMA_DKV_CTAS_PER_SM[D] * flash.FMA_SMS
+    assert dkv["grid"] == (B * Hkv, n_kv, splits)
+    assert (splits == 1) == (B * Hkv * n_kv >= slots)
+    assert B * Hkv * n_kv * splits >= slots or splits == 4
+    # Every query row and every KV row has its CTA; the last tile of a
+    # ragged T is partly past the end.
+    assert fwd["grid"][1] * fwd_tile[0] >= T > (fwd["grid"][1] - 1) \
+        * fwd_tile[0]
+    assert dkv["grid"][1] * dkv_tile[0] >= T > (dkv["grid"][1] - 1) \
+        * dkv_tile[0]
+    # A KV tile is a whole number of the steps' query tiles, so a causal
+    # CTA starts its loop at the step of its own first row.
+    assert dkv_tile[0] % dkv_tile[1] == 0
+    assert flash.FMA_FWD_TILE[D] == fwd_tile
+    assert flash.FMA_DKV_TILE[D] == dkv_tile
+
+
+@pytest.mark.parametrize("T,tiles", [(32, 1), (130, 3), (1000, 16),
+                                     (1024, 16), (2048, 32)])
+def test_fma_dkv_issues_the_heaviest_kv_tiles_first(T, tiles):
+    # The 124M shape at float32: under a causal mask KV tile y sees the
+    # query rows from 64 y on, so work falls with y and the grid issues
+    # y = 0 first (every (b, KV head) of a tile before the next tile).
+    q, k, v = _qkv(8, T, 12, 12, 64, torch.float32)
+    plan = flash.dkv_plan(q, k, v, q)
+    assert plan["grid"] == (8 * 12, tiles, 1)
+    assert plan["tile_order"] == list(range(tiles))
+    rows_kv = plan["tile"][0]
+    work = [sum(T - max(r, y * rows_kv) for r in range(y * rows_kv,
+                                                      min(T, (y + 1)
+                                                          * rows_kv)))
+            for y in plan["tile_order"]]
+    assert work == sorted(work, reverse=True)
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,D,splits", [
+    # The 124M f32 shape: 1536 CTAs, no split.
+    (8, 1024, 12, 12, 64, 1),
+    # GQA 32/8 at head dim 128, batch 1: 8 x 32 = 256 CTAs, two splits.
+    (1, 2048, 32, 8, 128, 2),
+    (1, 1000, 32, 8, 128, 3),
+    # The tiny config (4/2 heads of 16, T 64): 8 CTAs, two query tiles.
+    (4, 64, 4, 2, 16, 2),
+    # Head dim 16 at batch 1: 512 CTAs, where an SM holds six.
+    (1, 1000, 32, 32, 16, 2),
+    (1, 4096, 32, 32, 128, 1),
+])
+def test_fma_dkv_splits_a_grid_smaller_than_the_card(B, T, H, Hkv, D,
+                                                     splits):
+    q, k, v = _qkv(B, T, H, Hkv, D, torch.float32)
+    plan = flash.dkv_plan(q, k, v, q)
+    assert plan["splits"] == splits
+    assert plan["grid"][2] == splits
+    # Every split has query tiles of its own to walk.
+    n_q = -(-T // plan["tile"][1])
+    assert splits <= min(n_q, flash.FMA_DKV_MAX_SPLITS)
+
+
+@pytest.mark.parametrize("T,tiles", [(64, 1), (130, 3), (1000, 16),
+                                     (1023, 16)])
+def test_fma_forward_issues_the_heaviest_query_tiles_first(T, tiles):
+    q, k, v = _qkv(8, T, 12, 12, 64, torch.float32)
+    plan = flash.fwd_plan(q, k, v)
+    assert plan["grid"] == (8 * 12, tiles)
+    assert plan["tile_order"] == list(range(tiles - 1, -1, -1))
 
 
 def test_tensor_maps_of_contiguous_inputs():
@@ -175,11 +278,50 @@ def test_copies_for_the_kernel_are_fresh_and_contiguous():
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 32),
                                      (torch.float32, 128)])
 def test_the_fma_plan_has_no_maps(plan_of, dtype, D):
+    # The f32-FMA kernels take no tensor maps.  The forward and dK/dV copy
+    # 4-element chunks (cp.async): contiguous inputs are read in place, and
+    # an input with d-stride 2 is copied first.  dQ reads by stride and
+    # copies nothing.
     q, k, v = _qkv(1, 64, 4, 4, D, dtype)
-    plan = (flash.fwd_plan(q, k, v) if plan_of == "fwd"
-            else getattr(flash, f"{plan_of}_plan")(q, k, v, q))
-    assert plan["kernel"] == "fma"
-    assert "maps" not in plan and "copies" not in plan
+    wide = torch.zeros(1, 64, 4, 2 * D, dtype=dtype)[..., ::2]
+
+    def plan(q, k, v):
+        return (flash.fwd_plan(q, k, v) if plan_of == "fwd"
+                else getattr(flash, f"{plan_of}_plan")(q, k, v, q))
+    got = plan(q, k, v)
+    assert got["kernel"] == "fma"
+    assert "maps" not in got
+    if plan_of == "dq":
+        assert "copies" not in got and "copies" not in plan(q, wide, wide)
+        return
+    names = ["q", "k", "v"] + (["g"] if plan_of == "dkv" else [])
+    assert got["copies"] == dict.fromkeys(names, False)
+    assert plan(q, wide, wide)["copies"] == {
+        name: name in ("k", "v") for name in names}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_fma_copy_rule(dtype):
+    B, T, H, D = 1, 70, 4, 32
+    # [B, H, T, D] storage viewed as [B, T, H, D]: read in place.
+    bhtd = torch.zeros(B, H, T, D, dtype=dtype).transpose(1, 2)
+    assert flash.fma_ready(bhtd) and flash.fma_operand(bhtd) is bhtd
+    # A base one element off the 4-element grid, and a t-stride that is not
+    # a multiple of 4 (rows of 4 * 32 + 2 elements): copied.
+    base = torch.arange(1 + B * T * H * D, dtype=torch.float32).to(dtype)
+    off = base[1:].view(B, T, H, D)
+    padded = torch.zeros(B, T, H * D + 2, dtype=dtype)[..., :H * D] \
+        .view(B, T, H, D)
+    for t in (off, padded):
+        assert not flash.fma_ready(t)
+        got = flash.fma_operand(t)
+        assert got.is_contiguous() and torch.equal(got, t)
+        assert got.data_ptr() % (4 * got.element_size()) == 0
+    q, k, v = _qkv(B, T, H, H, D, dtype)
+    assert flash.fwd_plan(off, k, v)["copies"] == {
+        "q": True, "k": False, "v": False}
+    assert flash.dkv_plan(q, k, v, padded)["copies"] == {
+        "q": False, "k": False, "v": False, "g": True}
 
 
 class _Lib:
@@ -237,6 +379,55 @@ def test_dq_launches_the_entry_its_route_names(lib, dtype, D, entry):
     assert counts["flash_attention_bwd_dq"] == 1
     assert counts["flash_attention_bwd_dq_wgmma"] == int(
         entry.endswith("wgmma"))
+
+
+class _ArgLib(_Lib):
+    """A stand-in library that also keeps each entry point's arguments."""
+
+    def __init__(self):
+        super().__init__()
+        self.args = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            self.args.append(args)
+            return self.code
+        return entry
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_fma_forward_and_dkv_launch_on_chunk_ready_inputs(monkeypatch, D):
+    fake = _ArgLib()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    ops.reset_launch_counts()
+    T, H = 70, 4
+    q = torch.randn(1, T, H, D)
+    # k and v with d-stride 2: the wrapper hands the kernel contiguous
+    # copies (d-stride 1 in the strides it passes).
+    k, v = (torch.randn(1, T, H, 2 * D)[..., ::2] for _ in range(2))
+    opts = dict(causal=True, scale=D ** -0.5, window=0)
+    with torch.no_grad():
+        flash.flash_kernel_with_lse(q, k, v, **opts)
+        lse = torch.zeros(1, H, T)
+        flash.flash_bwd_dkv_kernel(q, k, v, q, lse, lse, **opts)
+    assert fake.calls == ["tj_flash_fwd", "tj_flash_bwd_dkv"]
+    fwd_args, dkv_args = fake.args
+    # (b, t, h, d) strides of q, k, v, o after the 14 leading arguments.
+    assert fwd_args[14:30] == 4 * (T * H * D, H * D, D, 1)
+    assert fwd_args[1] != k.data_ptr()
+    # dK/dV: 8 CTAs, so each KV tile's query tiles (two of 64 rows at D64,
+    # three of 32 at D128) are split over as many CTAs with an f32 scratch
+    # (the 9th pointer, splits the 9th int); the strides of q, k, v, dO,
+    # dk, dv after the 19 leading arguments.
+    assert dkv_args[8] is not None and dkv_args[17] == {64: 2, 128: 3}[D]
+    assert dkv_args[19:43] == 6 * (T * H * D, H * D, D, 1)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    assert counts["flash_attention_fwd_wgmma"] == 0
+    ops.reset_launch_counts()
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),

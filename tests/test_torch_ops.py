@@ -362,6 +362,92 @@ class TestFlashBackward:
         torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
 
 
+#: (D, causal, H, Hkv, T, window) at the f32-FMA kernels' wide head dims
+#: (the 124M config at float32 takes D64, Llama-2-7B's width at float32
+#: D128): GQA, windows, unmasked, ragged T against blocks of 16 and 8.
+WIDE_CASES = [
+    (64, True, 4, 2, 40, 0),
+    (64, True, 4, 2, 37, 5),
+    (64, False, 4, 2, 33, 0),
+    (128, True, 4, 2, 37, 0),
+    (128, True, 8, 2, 40, 7),
+    (128, False, 4, 1, 33, 0),
+]
+#: Of those, the ones also held against the Pallas kernels in interpret
+#: mode (a few seconds each).
+WIDE_INTERPRET = [WIDE_CASES[i] for i in (1, 4)]
+
+
+class TestWideHeadDims:
+    """The port's plain f32 attention, which the CPU tensors of a float32
+    run take and which chip_smoke holds the f32-FMA kernels to, against the
+    JAX package at head dims 64 and 128."""
+
+    @pytest.mark.parametrize(
+        "jax_side,D,causal,H,Hkv,T,window",
+        [("pallas_interpret",) + c for c in WIDE_INTERPRET]
+        + [("reference",) + c for c in WIDE_CASES])
+    def test_out_and_lse_match_jax(self, jax_side, D, causal, H, Hkv, T,
+                                   window):
+        q, k, v = _qkv(1, T, H, Hkv, D, seed=9)
+        (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "float32")
+                                        for a in (q, k, v))
+        scale = D ** -0.5
+        qj, kj, vj = (a.transpose(0, 2, 1, 3) for a in (qj, kj, vj))
+        if jax_side == "pallas_interpret":
+            out_j, lse_j = jfa._flash_forward(
+                qj, kj, vj, scale=scale, causal=causal, block_q=16,
+                block_k=8, interpret=True, window=window)
+        else:
+            out_j = jfa._reference(qj, kj, vj, scale=scale, causal=causal,
+                                   window=window)
+            lse_j = jfa._reference_lse(qj, kj, scale=scale, causal=causal,
+                                       window=window)
+        out_t, lse_t = tfa.flash_attention_with_lse(qt, kt, vt,
+                                                    causal=causal,
+                                                    window=window)
+        rtol, atol = TOL["float32"]
+        np.testing.assert_allclose(_np(out_t),
+                                   _np(out_j).transpose(0, 2, 1, 3),
+                                   rtol=rtol, atol=atol)
+        np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
+                                   rtol=0, atol=LSE_ATOL)
+
+    @pytest.mark.parametrize(
+        "jax_side,D,causal,H,Hkv,T,window",
+        [("pallas_interpret",) + c for c in WIDE_INTERPRET]
+        + [("reference_vjp",) + c for c in WIDE_CASES])
+    def test_grads_match_jax(self, monkeypatch, jax_side, D, causal, H, Hkv,
+                             T, window):
+        q, k, v = _qkv(1, T, H, Hkv, D, seed=10)
+        g = np.random.default_rng(11).standard_normal(
+            (1, T, H, D)).astype(np.float32)
+        (qj, qt), (kj, kt), (vj, vt), (gj, gt) = (
+            _pair(a, "float32") for a in (q, k, v, g))
+        if jax_side == "pallas_interpret":
+            monkeypatch.setenv("TRAININGJOB_PALLAS", "interpret")
+
+            def fwd(a, b, c):
+                return jfa.flash_attention(a, b, c, causal=causal,
+                                           window=window, block_q=16,
+                                           block_k=8)
+        else:
+            def fwd(a, b, c):
+                return jfa.attention_xla(a, b, c, causal=causal,
+                                         window=window)
+        _, vjp = jax.vjp(fwd, qj, kj, vj)
+        want = vjp(gj)
+        for t in (qt, kt, vt):
+            t.requires_grad_(True)
+        tfa.flash_attention(qt, kt, vt, causal=causal,
+                            window=window).backward(gt)
+        rtol, atol = BWD_TOL["float32"]
+        for got, w in zip((qt.grad, kt.grad, vt.grad), want):
+            assert got.shape == w.shape
+            np.testing.assert_allclose(_np(got), _np(w), rtol=rtol,
+                                       atol=atol)
+
+
 class TestBuild:
     def test_ctypes_signatures_match_the_c_entry_points(self):
         # The argtypes in _build.SIGNATURES must list exactly the

@@ -6,8 +6,9 @@ each beside its plain version.
 Which kernel a CUDA tensor takes goes by dtype and head dim alone
 (``kernel_route``): bf16 at head dims 64 and 128 (``llama2_7b``,
 ``base_124m``) runs the forward, dQ and dK/dV on the tensor cores (wgmma,
-TMA, an mbarrier ring); float32 at every head dim and bf16 at 16 and 32
-(the tiny config) run the f32-FMA kernels.  The launch plans (kernel,
+TMA, an mbarrier ring); float32 at every head dim (the 124M config at
+``LLAMA_DTYPE=float32``) and bf16 at 16 and 32 (the tiny config) run the
+f32-FMA kernels.  The launch plans (kernel,
 grid, tile order, tensor maps, copies) are plain Python (``fwd_plan``,
 ``dq_plan``, ``dkv_plan``) so that the CPU tests check them.
 
@@ -47,8 +48,25 @@ TC_DKV_TILE = (64, 64)
 #: Columns of a TMA box: 64 bf16 are the 128 bytes the 128-byte swizzle
 #: takes; a head dim of 128 loads as two boxes.
 TMA_BOX_D = 64
-#: Row tile of the f32-FMA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu).
+#: Row tile of the f32-FMA dQ kernel (csrc/flash_bwd.cu tj_flash_bwd_dq).
 FMA_TILE = 64
+#: Tiles of the f32-FMA forward by head dim, (query rows per CTA, keys per
+#: K/V tile), and its warps a CTA: BQ, BK and NW of csrc/flash_fwd.cu
+#: FwdShape.
+FMA_FWD_TILE = {16: (64, 32), 32: (128, 32), 64: (64, 64), 128: (64, 64)}
+FMA_FWD_WARPS = {16: 2, 32: 4, 64: 4, 128: 4}
+#: Tiles of the f32-FMA dK/dV by head dim, (KV rows per CTA, query rows per
+#: step), and its warps a CTA: BK, BQ and NW of csrc/flash_bwd.cu
+#: DkvShape.
+FMA_DKV_TILE = {16: (64, 32), 32: (128, 32), 64: (64, 64), 128: (64, 32)}
+FMA_DKV_WARPS = {16: 2, 32: 4, 64: 4, 128: 4}
+#: CTAs of the f32-FMA dK/dV an SM holds, by head dim (registers and
+#: shared memory: the ``device`` phase's ptxas lines), and the SMs the plans
+#: assume for a tensor that is not on a card (an H100 SXM's).
+FMA_DKV_CTAS_PER_SM = {16: 6, 32: 2, 64: 2, 128: 2}
+FMA_SMS = 132
+#: Most query-row splits of a KV tile in the f32-FMA dK/dV (``dkv_plan``).
+FMA_DKV_MAX_SPLITS = 4
 
 #: Kernel launches since the last reset (chip_smoke.py reads them): the
 #: forward, dQ and dK/dV count every launch, whichever kernel ran; the
@@ -185,6 +203,21 @@ def tma_operand(t):
     return t if tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
 
 
+def fma_ready(t) -> bool:
+    """Whether the f32-FMA forward and dK/dV can copy ``t`` [B, T, H, D]
+    into shared memory in 4-element chunks (cp.async) in place: d-stride
+    1, and the base and the t, h and b strides 4-element aligned."""
+    return (t.stride(3) == 1 and t.data_ptr() % (4 * t.element_size()) == 0
+            and all(s % 4 == 0 for s in t.stride()[:3]))
+
+
+def fma_operand(t):
+    """``t`` itself where ``fma_ready``, else an explicit contiguous copy
+    (fresh, so also aligned).  A [B, H, T, D] storage viewed as [B, T, H,
+    D] is read in place; a d-stride other than 1 is copied."""
+    return t if fma_ready(t) else t.clone(memory_format=torch.contiguous_format)
+
+
 def tensor_map_geometry(shape, strides, esize: int, box_rows: int) -> dict:
     """The 4-D tensor map of a [B, T, H, D] tensor with element ``strides``
     (d-stride 1): dims innermost first (d, t, h, b), the byte strides of t,
@@ -224,7 +257,8 @@ def _query_tile_plan(q, operands: dict, tile) -> dict:
     the kernel (``kernel_route``), the grid, the query tiles in issue order
     and, for the tensor-core kernel, which ``operands`` are copied and their
     tensor maps (q and dO boxes of ``tile[0]`` rows, k and v of
-    ``tile[1]``)."""
+    ``tile[1]``).  The f32-FMA dQ kernel (``tile`` None under the "fma"
+    route) reads its inputs by stride: one CTA per 64-row query tile in x."""
     B, T, H, D = q.shape
     kernel = kernel_route(q.dtype, D)
     if kernel == "fma":
@@ -242,10 +276,34 @@ def _query_tile_plan(q, operands: dict, tile) -> dict:
             "copies": copies, "maps": maps}
 
 
+def _fma_copies(operands: dict) -> dict:
+    """Which inputs of the f32-FMA forward or dK/dV are copied first (not
+    ``fma_ready``)."""
+    return {name: not fma_ready(t) for name, t in operands.items()}
+
+
+def _sm_count(t) -> int:
+    """SMs of ``t``'s card, or ``FMA_SMS`` for a CPU tensor."""
+    if t.is_cuda:
+        return torch.cuda.get_device_properties(t.device).multi_processor_count
+    return FMA_SMS
+
+
 def fwd_plan(q, k, v) -> dict:
-    """How the forward launches on [B, T, H, D] inputs
-    (``_query_tile_plan``).  Plain Python: the wrapper launches by it and
-    the CPU tests check it."""
+    """How the forward launches on [B, T, H, D] inputs.  Plain Python: the
+    wrapper launches by it and the CPU tests check it.  The tensor-core
+    kernel as ``_query_tile_plan`` says; the f32-FMA kernel with one CTA of
+    ``FMA_FWD_WARPS`` warps per (``FMA_FWD_TILE`` query tile, b, h), every
+    (b, h) in x and the query tile in y from the last (under a causal mask
+    the heaviest) to the first, and which inputs are copied first."""
+    B, T, H, D = q.shape
+    if kernel_route(q.dtype, D) == "fma":
+        rows_q, rows_kv = FMA_FWD_TILE[D]
+        n = _tiles(T, rows_q)
+        return {"kernel": "fma", "grid": (B * H, n),
+                "tile_order": [n - 1 - y for y in range(n)],
+                "tile": (rows_q, rows_kv), "warps": FMA_FWD_WARPS[D],
+                "copies": _fma_copies({"q": q, "k": k, "v": v})}
     return _query_tile_plan(q, {"q": q, "k": k, "v": v}, TC_FWD_TILE)
 
 
@@ -257,15 +315,31 @@ def dq_plan(q, k, v, g) -> dict:
 
 def dkv_plan(q, k, v, g) -> dict:
     """As ``fwd_plan`` for dK/dV (``g`` is dO): one CTA per (KV tile, b, KV
-    head), KV tiles in ascending order (tile 0 sees every query tile under
-    a causal mask: the heaviest first)."""
+    head), every (b, KV head) in x and the KV tiles in y in ascending order
+    (tile 0 sees every query tile under a causal mask: the heaviest first).
+    The f32-FMA kernel's tiles are ``FMA_DKV_TILE`` (KV rows, query rows a
+    step) with ``FMA_DKV_WARPS`` warps.  Where that grid has fewer CTAs
+    than the card holds at once (``FMA_DKV_CTAS_PER_SM`` an SM), each KV
+    tile's query tiles are split over ``splits``
+    CTAs (grid z; at most ``FMA_DKV_MAX_SPLITS`` and the query tiles): the
+    CTA of KV tile 0, which walks every query tile of every group head
+    under a causal mask, would otherwise be the kernel's one long chain.
+    The splits' f32 sums meet in a scratch buffer and are added in order
+    (``tj_flash_bwd_dkv``)."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     kernel = kernel_route(q.dtype, D)
     if kernel == "fma":
-        n = _tiles(T, FMA_TILE)
-        return {"kernel": kernel, "grid": (n, B * Hkv),
-                "tile_order": list(range(n))}
+        rows_kv, rows_q = FMA_DKV_TILE[D]
+        n = _tiles(T, rows_kv)
+        slots = FMA_DKV_CTAS_PER_SM[D] * _sm_count(q)
+        ctas = B * Hkv * n
+        splits = 1 if ctas >= slots else min(
+            FMA_DKV_MAX_SPLITS, -(-slots // ctas), _tiles(T, rows_q))
+        return {"kernel": kernel, "grid": (B * Hkv, n, splits),
+                "tile_order": list(range(n)), "tile": (rows_kv, rows_q),
+                "warps": FMA_DKV_WARPS[D], "splits": splits,
+                "copies": _fma_copies({"q": q, "k": k, "v": v, "g": g})}
     rows_kv, rows_q = TC_DKV_TILE
     n = _tiles(T, rows_kv)
     copies, maps = _maps({"q": q, "k": k, "v": v, "g": g},
@@ -278,12 +352,12 @@ def dkv_plan(q, k, v, g) -> dict:
 def flash_kernel_with_lse(q, k, v, *, causal: bool, scale: float,
                           window: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel ``fwd_plan`` names on CUDA tensors [B, T,
-    H, D].  The f32-FMA kernel (``csrc/flash_fwd.cu``) reads its inputs by
-    stride; the tensor-core kernel (``csrc/flash_fwd_wgmma.cu``) reads them
-    through tensor maps built from their strides, so neither makes a
-    transpose copy.  An input whose d-stride is not 1 (or whose base or
-    strides are not 16-byte aligned) is copied contiguous for the
-    tensor-core kernel first (``tma_operand``)."""
+    H, D].  The f32-FMA kernel (``csrc/flash_fwd.cu``) copies 4-element
+    chunks of its inputs by their t, h and b strides; the tensor-core
+    kernel (``csrc/flash_fwd_wgmma.cu``) reads them through tensor maps
+    built from their strides, so neither makes a transpose copy.  An input
+    whose d-stride is not 1 (or whose base or strides are not aligned) is
+    copied contiguous first (``fma_operand``, ``tma_operand``)."""
     global launches, wgmma_fwd_launches
     check_kernel_args(q, k, v)
     B, T, H, D = q.shape
@@ -304,6 +378,7 @@ def flash_kernel_with_lse(q, k, v, *, causal: bool, scale: float,
         _build.check(code, "flash_attention_fwd_wgmma")
         wgmma_fwd_launches += 1
     else:
+        q, k, v = (fma_operand(x) for x in (q, k, v))
         code = lib.tj_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B, T, H, Hkv, D,
@@ -427,10 +502,11 @@ def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel ``dkv_plan`` names on CUDA tensors: (dk, dv)
     [B, T, Hkv, D] in k's dtype, the GQA group summed inside the kernel.
-    ``tj_flash_bwd_dkv`` (``csrc/flash_bwd.cu``) reads q, k, v and dO by
-    stride, ``tj_flash_bwd_dkv_wgmma`` (``csrc/flash_bwd_dkv_wgmma.cu``)
-    through tensor maps, after an explicit contiguous copy of any of them
-    that is not ``tma_ready``."""
+    ``tj_flash_bwd_dkv`` (``csrc/flash_bwd.cu``) copies 4-element chunks of
+    q, k, v and dO by their strides, ``tj_flash_bwd_dkv_wgmma``
+    (``csrc/flash_bwd_dkv_wgmma.cu``) reads them through tensor maps, each
+    after an explicit contiguous copy of any input it cannot read in place
+    (``fma_operand``, ``tma_operand``)."""
     global bwd_dkv_launches, wgmma_dkv_launches
     _check_bwd_args(q, k, v, g, lse, delta)
     B, T, H, D = q.shape
@@ -451,11 +527,16 @@ def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool,
         _build.check(code, "flash_attention_bwd_dkv_wgmma")
         wgmma_dkv_launches += 1
     else:
+        q, k, v, g = (fma_operand(x) for x in (q, k, v, g))
+        splits = plan["splits"]
+        ws = (torch.empty((2, splits, B, T, Hkv, D), dtype=torch.float32,
+                          device=q.device) if splits > 1 else None)
         code = lib.tj_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             B, T, H, Hkv, D, _build.dtype_code(q),
-            int(causal), int(window), float(scale),
+            int(causal), int(window), splits, float(scale),
             *q.stride(), *k.stride(), *v.stride(), *g.stride(),
             *dk.stride(), *dv.stride(), _build.stream_of(q))
         _build.check(code, "flash_attention_bwd_dkv")
