@@ -510,6 +510,9 @@ FLASH_CASES = [
     (8, 1024, 12, 12, 64, True, 0, "float32"),
     (1, 2048, 32, 8, 128, True, 0, "float32"),
     (1, 2048, 32, 32, 128, True, 256, "float32"),
+    # bf16 at head dims 16 and 32 (the tiny config's) also takes them.
+    (1, 1000, 32, 32, 16, True, 0, "bfloat16"),
+    (1, 1000, 32, 32, 32, True, 0, "bfloat16"),
 ]
 #: FLASH_CASES entry of the training path's attention shape.
 TRAIN_FLASH_CASE = 6

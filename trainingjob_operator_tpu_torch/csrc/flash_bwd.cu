@@ -48,6 +48,8 @@
 //   one buffer each, chunk-swizzled as in flash_fwd.cu: dO_{s+1} is queued
 //   once every warp has finished dV_s and overlaps dK_s, Q_{s+1} once every
 //   warp has finished dK_s and overlaps dP_{s+1}; three barriers a step.
+//   Shared memory (dkv_smem_bytes) is 96 KB at D64 and 112 KB at D128 in
+//   f32: two CTAs an SM.
 //   The whole group is summed in registers, so only [B, T, Hkv, D] is
 //   written, with no atomics: the result is deterministic.  A grid too
 //   small for the card (GQA at batch 1) would leave the CTA of KV tile 0,

@@ -17,13 +17,14 @@
 // of FMAs on the H100 SXM), not memory.  The design is that of a
 // register-blocked SGEMM, twice a K/V tile:
 // - Each thread holds MR query rows x SC key columns of the score tile S
-//   and the same MR rows x OC output columns of O (FwdShape; MR = 8 at
-//   head dims 32 to 128), so a product step reads MR + SC (S = Q K^T) or
-//   MR / 4 + OC / 4 (O += P V) 16-byte shared words for 4 * MR * SC or
-//   MR * OC FMAs.  A warp owns whole query rows: the
-//   row max is a shuffle among the TC threads of a row, the row sum stays
-//   a per-thread partial until the end, and P goes through a shared region
-//   of the warp's own (one __syncwarp, no block barrier).
+//   and the same MR rows x OC output columns of O (FwdCfg: 4 x 8 and 4 x 8
+//   at D64, 4 x 8 and 4 x 16 at D128), so a product step reads MR + SC
+//   (S = Q K^T) or MR / 4 + OC / 4 (O += P V) 16-byte shared words for
+//   4 * MR * SC or MR * OC FMAs.  A warp owns whole query rows: the row
+//   max is a shuffle among the TC threads of a row, the row sum stays a
+//   per-thread partial until the end, and P goes through a shared region
+//   of the warp's own (one __syncwarp, no block barrier).  The shapes
+//   were chosen by timing variants on the card (PERF.md).
 // - Q (scaled, as f32) and K are stored row-major in 4-element chunks with
 //   an XOR swizzle (fma_tile.cuh), V row-major, P key-major with the
 //   thread's MR rows contiguous, so every shared load is 16 bytes (8 for a

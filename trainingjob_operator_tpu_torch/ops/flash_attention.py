@@ -257,8 +257,8 @@ def _query_tile_plan(q, operands: dict, tile) -> dict:
     the kernel (``kernel_route``), the grid, the query tiles in issue order
     and, for the tensor-core kernel, which ``operands`` are copied and their
     tensor maps (q and dO boxes of ``tile[0]`` rows, k and v of
-    ``tile[1]``).  The f32-FMA dQ kernel (``tile`` None under the "fma"
-    route) reads its inputs by stride: one CTA per 64-row query tile in x."""
+    ``tile[1]``).  Under the "fma" route (the f32-FMA dQ kernel, which
+    reads its inputs by stride) one CTA per 64-row query tile in x."""
     B, T, H, D = q.shape
     kernel = kernel_route(q.dtype, D)
     if kernel == "fma":
@@ -320,11 +320,11 @@ def dkv_plan(q, k, v, g) -> dict:
     The f32-FMA kernel's tiles are ``FMA_DKV_TILE`` (KV rows, query rows a
     step) with ``FMA_DKV_WARPS`` warps.  Where that grid has fewer CTAs
     than the card holds at once (``FMA_DKV_CTAS_PER_SM`` an SM), each KV
-    tile's query tiles are split over ``splits``
-    CTAs (grid z; at most ``FMA_DKV_MAX_SPLITS`` and the query tiles): the
-    CTA of KV tile 0, which walks every query tile of every group head
-    under a causal mask, would otherwise be the kernel's one long chain.
-    The splits' f32 sums meet in a scratch buffer and are added in order
+    tile's query tiles are split over ``splits`` CTAs (grid z; at most
+    ``FMA_DKV_MAX_SPLITS`` and the query tiles): the CTA of KV tile 0,
+    which walks every query tile of every group head under a causal mask,
+    would otherwise be the kernel's one long chain.  The splits' f32 sums
+    meet in a scratch buffer and are added in order
     (``tj_flash_bwd_dkv``)."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
