@@ -326,10 +326,11 @@ def test_the_fma_copy_rule(dtype):
 
 class _Lib:
     """Stands in for the kernel library: records the entry points called
-    and returns ``code`` from each."""
+    and their arguments, and returns ``code`` from each."""
 
     def __init__(self, code=0, missing=()):
-        self.calls, self.code, self.missing = [], code, missing
+        self.calls, self.args, self.code, self.missing = [], [], code, \
+            missing
 
     def __getattr__(self, name):
         if name in self.missing:
@@ -337,6 +338,7 @@ class _Lib:
 
         def entry(*args):
             self.calls.append(name)
+            self.args.append(args)
             return self.code
         return entry
 
@@ -346,8 +348,8 @@ class _Lib:
 
 @pytest.fixture
 def lib(monkeypatch):
-    """Route the dQ wrapper's launches to a stand-in library (CPU tensors
-    have no CUDA stream; the wrapper's dispatch is what is under test)."""
+    """Route the wrappers' launches to a stand-in library (CPU tensors have
+    no CUDA stream; the wrappers' dispatch is what is under test)."""
     fake = _Lib()
     monkeypatch.setattr(_build, "library", lambda: fake)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
@@ -381,27 +383,8 @@ def test_dq_launches_the_entry_its_route_names(lib, dtype, D, entry):
         entry.endswith("wgmma"))
 
 
-class _ArgLib(_Lib):
-    """A stand-in library that also keeps each entry point's arguments."""
-
-    def __init__(self):
-        super().__init__()
-        self.args = []
-
-    def __getattr__(self, name):
-        def entry(*args):
-            self.calls.append(name)
-            self.args.append(args)
-            return self.code
-        return entry
-
-
 @pytest.mark.parametrize("D", [64, 128])
-def test_fma_forward_and_dkv_launch_on_chunk_ready_inputs(monkeypatch, D):
-    fake = _ArgLib()
-    monkeypatch.setattr(_build, "library", lambda: fake)
-    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
-    ops.reset_launch_counts()
+def test_fma_forward_and_dkv_launch_on_chunk_ready_inputs(lib, D):
     T, H = 70, 4
     q = torch.randn(1, T, H, D)
     # k and v with d-stride 2: the wrapper hands the kernel contiguous
@@ -412,8 +395,8 @@ def test_fma_forward_and_dkv_launch_on_chunk_ready_inputs(monkeypatch, D):
         flash.flash_kernel_with_lse(q, k, v, **opts)
         lse = torch.zeros(1, H, T)
         flash.flash_bwd_dkv_kernel(q, k, v, q, lse, lse, **opts)
-    assert fake.calls == ["tj_flash_fwd", "tj_flash_bwd_dkv"]
-    fwd_args, dkv_args = fake.args
+    assert lib.calls == ["tj_flash_fwd", "tj_flash_bwd_dkv"]
+    fwd_args, dkv_args = lib.args
     # (b, t, h, d) strides of q, k, v, o after the 14 leading arguments.
     assert fwd_args[14:30] == 4 * (T * H * D, H * D, D, 1)
     assert fwd_args[1] != k.data_ptr()
@@ -427,7 +410,6 @@ def test_fma_forward_and_dkv_launch_on_chunk_ready_inputs(monkeypatch, D):
     assert counts["flash_attention_fwd"] == 1
     assert counts["flash_attention_bwd_dkv"] == 1
     assert counts["flash_attention_fwd_wgmma"] == 0
-    ops.reset_launch_counts()
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),

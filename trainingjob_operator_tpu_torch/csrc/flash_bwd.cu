@@ -719,14 +719,6 @@ bool same(const Strides& a, const Strides& b) {
   return a.b == b.b && a.t == b.t && a.h == b.h && a.d == b.d;
 }
 
-// Whether a [B, T, H, D] tensor is read in 4-element chunks (cp.async):
-// d-stride 1, the other strides and the base 4-element aligned.
-bool chunked(const void* p, const Strides& s, int dtype) {
-  const uintptr_t align = dtype == tj::kBF16 ? 8 : 16;
-  return s.d == 1 && s.t % 4 == 0 && s.h % 4 == 0 && s.b % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(p) % align == 0;
-}
-
 }  // namespace
 
 // q and dout: [B, T, Hq, D], k and v: [B, T, Hkv, D], dq: [B, T, Hq, D],
@@ -812,9 +804,9 @@ extern "C" int tj_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.sg = Strides{gb, gt, gh, gd};
   a.sdk = Strides{dkb, dkt, dkh, dkd};
   a.sdv = Strides{dvb, dvt, dvh, dvd};
-  if (!chunked(q, a.sq, dtype) || !chunked(k, a.sk, dtype) ||
-      !chunked(v, a.sv, dtype) || !chunked(dout, a.sg, dtype) ||
-      !chunked(dk, a.sdk, dtype) || !chunked(dv, a.sdv, dtype))
+  if (!tj::chunked(q, a.sq, dtype) || !tj::chunked(k, a.sk, dtype) ||
+      !tj::chunked(v, a.sv, dtype) || !tj::chunked(dout, a.sg, dtype) ||
+      !tj::chunked(dk, a.sdk, dtype) || !tj::chunked(dv, a.sdv, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides dense{static_cast<long long>(T_len) * Hkv * D,
                       static_cast<long long>(Hkv) * D, D, 1};

@@ -387,13 +387,6 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// Whether a [B, T, H, D] tensor is read in 4-element chunks: d-stride 1,
-// the other strides and the base 4-element aligned.
-bool chunked(const void* p, const Strides& s, size_t esize) {
-  return s.d == 1 && s.t % 4 == 0 && s.h % 4 == 0 && s.b % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(p) % (4 * esize) == 0;
-}
-
 }  // namespace
 
 // q: [B, T, Hq, D], k and v: [B, T, Hkv, D], o: [B, T, Hq, D], each given by
@@ -413,9 +406,8 @@ extern "C" int tj_flash_fwd(const void* q, const void* k, const void* v,
   if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{qb, qt, qh, qd}, sk{kb, kt, kh, kd}, sv{vb, vt, vh, vd},
       so{ob, ot, oh, od};
-  const size_t esize = dtype == tj::kBF16 ? 2 : 4;
-  if (!chunked(q, sq, esize) || !chunked(k, sk, esize) ||
-      !chunked(v, sv, esize) || !chunked(o, so, esize))
+  if (!tj::chunked(q, sq, dtype) || !tj::chunked(k, sk, dtype) ||
+      !tj::chunked(v, sv, dtype) || !tj::chunked(o, so, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);

@@ -124,4 +124,13 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long st,
   }
 }
 
+// Whether a [B, T, H, D] tensor of `dtype` (kF32, kBF16) given by its
+// element strides can be copied in 4-element chunks: d-stride 1, the other
+// strides and the base 4-element aligned.
+inline bool chunked(const void* p, const Strides& s, int dtype) {
+  const uintptr_t align = dtype == kBF16 ? 8 : 16;
+  return s.d == 1 && s.t % 4 == 0 && s.h % 4 == 0 && s.b % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % align == 0;
+}
+
 }  // namespace tj
