@@ -20,9 +20,10 @@ script exits non-zero):
    kernels' gradients (dQ, dK/dV, ``BWD_TOL``) are held to about one bf16
    step, an atol that is a fraction of the reference's RMS and a relative
    L2 limit; the backward must give bit-identical results on a second
-   run.  RMSNorm is timed over a rotation of input copies twice the size
-   of the card's L2, so that every call reads its input from device
-   memory.  Two cases are unmasked (``causal=False``, B1 T4096 H32 D128,
+   run.  RMSNorm runs at Llama-2-7B's rows and at the 124M trainer's
+   [8192, 768] in float32 and bf16 (``RMS_CASES``), timed over a rotation
+   of input copies twice the size of the card's L2, so that every call
+   reads its input from device memory.  Two cases are unmasked (``causal=False``, B1 T4096 H32 D128,
    MHA and GQA 32/8): a ring block before the diagonal, timed against
    SDPA with ``is_causal=False`` and bound with T^2 visible pairs.
 2a. train_124m_f32: the trainer's step at the 124M config in float32
@@ -224,8 +225,6 @@ script exits non-zero):
    phase of 18-20 must launch none of the port's kernels.
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
-``--phases kernel_checks,train_124m_f32`` runs the device phase and only
-those (no kernels or ok line): the flash kernels measured alone.
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
 dK/dV, with their launches on the paths driven (the 7B phases 5-9b and 13,
@@ -397,12 +396,16 @@ def max_violation(got, want, rtol, atol) -> float:
     return float(((g - w).abs() - (atol + rtol * w.abs())).max())
 
 
-#: (rows, dtype) of the RMSNorm checks, all at D = 4096 (Llama-2-7B): a
+#: (rows, d, dtype) of the RMSNorm checks.  At d = 4096 (Llama-2-7B): a
 #: serve tick's 4 slots, 16 rows, a 2048-token prefill and the training
-#: step's microbatch of 4096 tokens.
-RMS_CASES = [(4, "bfloat16"), (4, "float32"), (16, "bfloat16"),
-             (16, "float32"), (2048, "bfloat16"), (2048, "float32"),
-             (4096, "bfloat16")]
+#: step's microbatch of 4096 tokens.  At d = 768 (the 124M config): the
+#: trainer's 8 x 1024 tokens, at float32 (train_124m_f32) and bf16 (the
+#: trainer processes of resume_124m and after).
+RMS_CASES = [(4, 4096, "bfloat16"), (4, 4096, "float32"),
+             (16, 4096, "bfloat16"), (16, 4096, "float32"),
+             (2048, 4096, "bfloat16"), (2048, 4096, "float32"),
+             (4096, 4096, "bfloat16"), (8192, 768, "float32"),
+             (8192, 768, "bfloat16")]
 
 
 def copies_for(nbytes: int, l2_bytes: int) -> int:
@@ -430,8 +433,7 @@ def check_rmsnorm(torch, F, fused):
     dev = torch.device("cuda")
     l2_bytes = torch.cuda.get_device_properties(dev).L2_cache_size
     gen = torch.Generator(device=dev).manual_seed(0)
-    d = 4096
-    for rows, dname in RMS_CASES:
+    for rows, d, dname in RMS_CASES:
         dtype = getattr(torch, dname)
         x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
         scale = 1.0 + 0.5 * torch.randn(d, generator=gen, device=dev)
@@ -445,7 +447,7 @@ def check_rmsnorm(torch, F, fused):
                                  f"max abs err {err} over tolerance")
         n_copies = copies_for(x.numel() * x.element_size(), l2_bytes)
         xs = x.expand(n_copies, rows, d).contiguous()
-        base = 200 if rows < 2048 else 50
+        base = 200 if rows * d < 2048 * 4096 else 50
         iters = n_copies * math.ceil(base / n_copies)
         scale_x = scale.to(dtype)
         esize = x.element_size()
@@ -3414,19 +3416,7 @@ def summary(name, route, source, replaces, cases, main_case, launches):
         "cases": cases}
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument(
-        "--phases", default="",
-        help="comma-separated subset of kernel_checks,train_124m_f32 to run "
-             "after the device phase, for measuring the flash kernels alone "
-             "(default: every phase, ending in the kernels and ok lines)")
-    args = parser.parse_args(argv)
-    only = set(filter(None, args.phases.split(","))) or None
-    if only and not only <= {"kernel_checks", "train_124m_f32"}:
-        parser.error(f"--phases: unknown {sorted(only)}")
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3476,23 +3466,17 @@ def main(argv=None) -> int:
           "build_s": build_s, "build": _build.found["how"],
           "library": lib_path.name, "ptxas": ptxas})
 
-    if only is None or "kernel_checks" in only:
-        rms_cases = check_rmsnorm(torch, F, fused)
-        flash_cases = check_flash(torch, F, flash)
-        dq_cases, dkv_cases = check_flash_bwd(torch, F, flash)
-        emit({"phase": "kernel_checks", "device": name, "nvidia_smi": smi,
-              "rmsnorm_fwd": rms_cases, "flash_attention_fwd": flash_cases,
-              "flash_attention_bwd_dq": dq_cases,
-              "flash_attention_bwd_dkv": dkv_cases})
-    if only is None or "train_124m_f32" in only:
-        trained_f32 = train_124m_f32(torch, llama, llama_elastic, train,
-                                     flash)
-        emit({"phase": "train_124m_f32", "device": name, "nvidia_smi": smi,
-              **trained_f32})
-        torch.cuda.empty_cache()
-    if only is not None:
-        emit({"phases": sorted(only), "device": name})
-        return 0
+    rms_cases = check_rmsnorm(torch, F, fused)
+    flash_cases = check_flash(torch, F, flash)
+    dq_cases, dkv_cases = check_flash_bwd(torch, F, flash)
+    emit({"phase": "kernel_checks", "device": name, "nvidia_smi": smi,
+          "rmsnorm_fwd": rms_cases, "flash_attention_fwd": flash_cases,
+          "flash_attention_bwd_dq": dq_cases,
+          "flash_attention_bwd_dkv": dkv_cases})
+    trained_f32 = train_124m_f32(torch, llama, llama_elastic, train, flash)
+    emit({"phase": "train_124m_f32", "device": name, "nvidia_smi": smi,
+          **trained_f32})
+    torch.cuda.empty_cache()
 
     tiny = tiny_equivalence(torch, llama, decode, serve)
     emit({"phase": "tiny_equivalence", **tiny})

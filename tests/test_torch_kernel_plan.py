@@ -9,6 +9,7 @@ the kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 
 import importlib
 import importlib.util
+import re
 from pathlib import Path
 
 import pytest
@@ -87,30 +88,56 @@ def test_fma_grids_are_those_of_the_f32_kernels():
     # dQ (unchanged kernel): 64-row query tiles in x, (b, h) in y.
     assert flash.dq_plan(q, k, v, q)["grid"] == (3, 8)
     assert flash.dq_plan(q, k, v, q)["tile_order"] == [0, 1, 2]
-    # dK/dV: (b, KV head) in x, 64-row KV tiles in y, tile 0 first; 12
-    # CTAs are far fewer than the card holds, so each KV tile's five 32-row
-    # query tiles are split over 4 CTAs in z.
-    assert flash.dkv_plan(q, k, v, q)["grid"] == (4, 3, 4)
+    # dK/dV: (b, KV head) in x, 64-row KV tiles in y, tile 0 first.
+    assert flash.dkv_plan(q, k, v, q)["grid"] == (4, 3)
     assert flash.dkv_plan(q, k, v, q)["tile_order"] == [0, 1, 2]
 
 
-#: (dtype, D) -> forward (query rows, keys) a tile and warps, dK/dV (KV
-#: rows, query rows) a step and warps: the FwdShape and DkvShape of
-#: csrc/flash_fwd.cu and csrc/flash_bwd.cu.
-FMA_SHAPES = {
-    (torch.float32, 16): ((64, 32), 2, (64, 32), 2),
-    (torch.bfloat16, 16): ((64, 32), 2, (64, 32), 2),
-    (torch.float32, 32): ((128, 32), 4, (128, 32), 4),
-    (torch.bfloat16, 32): ((128, 32), 4, (128, 32), 4),
-    (torch.float32, 64): ((64, 64), 4, (64, 64), 4),
-    (torch.float32, 128): ((64, 64), 4, (64, 32), 4),
-}
+CSRC = Path(flash.__file__).resolve().parents[1] / "csrc"
 
 
-@pytest.mark.parametrize("dtype,D", list(FMA_SHAPES))
+def _cfg(source: str, struct: str) -> dict:
+    """{D: {constant: value}} of the ``struct<D>`` specialisations in
+    ``csrc/<source>``."""
+    text = (CSRC / source).read_text()
+    found = re.findall(rf"struct {struct}<(\d+)> {{\s*static constexpr int "
+                       r"([^;]*);", text)
+    return {int(D): {name.strip(): int(value) for name, value in
+                     (field.split("=") for field in body.split(","))}
+            for D, body in found}
+
+
+def fma_shapes(D: int):
+    """The f32-FMA kernels' tiles at head dim ``D`` as the sources define
+    them: the forward's (BQ, BK) and NW (csrc/flash_fwd.cu FwdShape from
+    FwdCfg), dK/dV's (BK, BQ) and NW (csrc/flash_bwd.cu DkvShape from
+    DkvCfg)."""
+    f = _cfg("flash_fwd.cu", "FwdCfg")[D]
+    b = _cfg("flash_bwd.cu", "DkvCfg")[D]
+    fwd_tile = (f["NW"] * f["MR"] * (32 // f["TC"]), f["TC"] * f["SC"])
+    dkv_tile = (b["NW"] * b["RW"], (32 // b["TRs"]) * b["MCs"])
+    return fwd_tile, f["NW"], dkv_tile, b["NW"]
+
+
+@pytest.mark.parametrize("D", flash.KERNEL_HEAD_DIMS)
+def test_fma_tiles_are_those_of_the_sources(D):
+    # The plans' tile tables copy FwdCfg and DkvCfg: a change to a source
+    # shows here.
+    assert set(_cfg("flash_fwd.cu", "FwdCfg")) == set(flash.KERNEL_HEAD_DIMS)
+    assert set(_cfg("flash_bwd.cu", "DkvCfg")) == set(flash.KERNEL_HEAD_DIMS)
+    fwd_tile, fwd_warps, dkv_tile, dkv_warps = fma_shapes(D)
+    assert flash.FMA_FWD_TILE[D] == fwd_tile
+    assert flash.FMA_FWD_WARPS[D] == fwd_warps
+    assert flash.FMA_DKV_TILE[D] == dkv_tile
+    assert flash.FMA_DKV_WARPS[D] == dkv_warps
+
+
+@pytest.mark.parametrize("dtype,D", [
+    (torch.float32, 16), (torch.bfloat16, 16), (torch.float32, 32),
+    (torch.bfloat16, 32), (torch.float32, 64), (torch.float32, 128)])
 @pytest.mark.parametrize("T", [1000, 1023, 1024, 2048])
 def test_fma_tiles_by_head_dim(dtype, D, T):
-    fwd_tile, fwd_warps, dkv_tile, dkv_warps = FMA_SHAPES[dtype, D]
+    fwd_tile, fwd_warps, dkv_tile, dkv_warps = fma_shapes(D)
     B, H, Hkv = 8, 12, 4
     q, k, v = _qkv(B, T, H, Hkv, D, dtype)
     fwd = flash.fwd_plan(q, k, v)
@@ -122,12 +149,7 @@ def test_fma_tiles_by_head_dim(dtype, D, T):
     assert (dkv["kernel"], dkv["tile"], dkv["warps"]) == (
         "fma", dkv_tile, dkv_warps)
     n_kv = -(-T // dkv_tile[0])
-    # Split only where B * Hkv * n_kv CTAs are fewer than the card holds.
-    splits = dkv["splits"]
-    slots = flash.FMA_DKV_CTAS_PER_SM[D] * flash.FMA_SMS
-    assert dkv["grid"] == (B * Hkv, n_kv, splits)
-    assert (splits == 1) == (B * Hkv * n_kv >= slots)
-    assert B * Hkv * n_kv * splits >= slots or splits == 4
+    assert dkv["grid"] == (B * Hkv, n_kv)
     # Every query row and every KV row has its CTA; the last tile of a
     # ragged T is partly past the end.
     assert fwd["grid"][1] * fwd_tile[0] >= T > (fwd["grid"][1] - 1) \
@@ -137,8 +159,6 @@ def test_fma_tiles_by_head_dim(dtype, D, T):
     # A KV tile is a whole number of the steps' query tiles, so a causal
     # CTA starts its loop at the step of its own first row.
     assert dkv_tile[0] % dkv_tile[1] == 0
-    assert flash.FMA_FWD_TILE[D] == fwd_tile
-    assert flash.FMA_DKV_TILE[D] == dkv_tile
 
 
 @pytest.mark.parametrize("T,tiles", [(32, 1), (130, 3), (1000, 16),
@@ -149,7 +169,7 @@ def test_fma_dkv_issues_the_heaviest_kv_tiles_first(T, tiles):
     # y = 0 first (every (b, KV head) of a tile before the next tile).
     q, k, v = _qkv(8, T, 12, 12, 64, torch.float32)
     plan = flash.dkv_plan(q, k, v, q)
-    assert plan["grid"] == (8 * 12, tiles, 1)
+    assert plan["grid"] == (8 * 12, tiles)
     assert plan["tile_order"] == list(range(tiles))
     rows_kv = plan["tile"][0]
     work = [sum(T - max(r, y * rows_kv) for r in range(y * rows_kv,
@@ -159,27 +179,25 @@ def test_fma_dkv_issues_the_heaviest_kv_tiles_first(T, tiles):
     assert work == sorted(work, reverse=True)
 
 
-@pytest.mark.parametrize("B,T,H,Hkv,D,splits", [
-    # The 124M f32 shape: 1536 CTAs, no split.
-    (8, 1024, 12, 12, 64, 1),
-    # GQA 32/8 at head dim 128, batch 1: 8 x 32 = 256 CTAs, two splits.
-    (1, 2048, 32, 8, 128, 2),
-    (1, 1000, 32, 8, 128, 3),
-    # The tiny config (4/2 heads of 16, T 64): 8 CTAs, two query tiles.
-    (4, 64, 4, 2, 16, 2),
-    # Head dim 16 at batch 1: 512 CTAs, where an SM holds six.
-    (1, 1000, 32, 32, 16, 2),
-    (1, 4096, 32, 32, 128, 1),
+@pytest.mark.parametrize("B,T,H,Hkv,D", [
+    # The 124M f32 shape: 1536 CTAs.
+    (8, 1024, 12, 12, 64),
+    # GQA 32/8 at head dim 128, batch 1: 8 x 32 = 256 CTAs.
+    (1, 2048, 32, 8, 128),
+    (1, 1000, 32, 8, 128),
+    # The tiny config (4/2 heads of 16, T 64): 8 CTAs.
+    (4, 64, 4, 2, 16),
+    (1, 1000, 32, 32, 16),
+    (1, 4096, 32, 32, 128),
 ])
-def test_fma_dkv_splits_a_grid_smaller_than_the_card(B, T, H, Hkv, D,
-                                                     splits):
+def test_fma_dkv_grid_is_one_cta_per_kv_tile(B, T, H, Hkv, D):
+    # Each CTA walks every query tile its KV tile sees, for the whole GQA
+    # group, and writes its rows of dK and dV once: no partial sums.
     q, k, v = _qkv(B, T, H, Hkv, D, torch.float32)
     plan = flash.dkv_plan(q, k, v, q)
-    assert plan["splits"] == splits
-    assert plan["grid"][2] == splits
-    # Every split has query tiles of its own to walk.
-    n_q = -(-T // plan["tile"][1])
-    assert splits <= min(n_q, flash.FMA_DKV_MAX_SPLITS)
+    rows_kv = fma_shapes(D)[2][0]
+    assert plan["grid"] == (B * Hkv, -(-T // rows_kv))
+    assert plan["tile_order"] == list(range(plan["grid"][1]))
 
 
 @pytest.mark.parametrize("T,tiles", [(64, 1), (130, 3), (1000, 16),
@@ -400,12 +418,10 @@ def test_fma_forward_and_dkv_launch_on_chunk_ready_inputs(lib, D):
     # (b, t, h, d) strides of q, k, v, o after the 14 leading arguments.
     assert fwd_args[14:30] == 4 * (T * H * D, H * D, D, 1)
     assert fwd_args[1] != k.data_ptr()
-    # dK/dV: 8 CTAs, so each KV tile's query tiles (two of 64 rows at D64,
-    # three of 32 at D128) are split over as many CTAs with an f32 scratch
-    # (the 9th pointer, splits the 9th int); the strides of q, k, v, dO,
-    # dk, dv after the 19 leading arguments.
-    assert dkv_args[8] is not None and dkv_args[17] == {64: 2, 128: 3}[D]
-    assert dkv_args[19:43] == 6 * (T * H * D, H * D, D, 1)
+    # dK/dV: the strides of q, k, v, dO, dk, dv after the 17 leading
+    # arguments.
+    assert dkv_args[17:41] == 6 * (T * H * D, H * D, D, 1)
+    assert dkv_args[2] != k.data_ptr()
     counts = ops.launch_counts()
     assert counts["flash_attention_fwd"] == 1
     assert counts["flash_attention_bwd_dkv"] == 1

@@ -1,19 +1,21 @@
 """Tile shapes of the f32-FMA flash forward and dK/dV, timed on one card.
 
-    python3 -m trainingjob_operator_tpu_torch.workloads.fma_sweep
+    python3 -m tools.fma_sweep [variant ...]
 
-Each variant rewrites ``FwdCfg`` / ``DkvCfg`` entries of
+A tuning script beside ``chip_smoke.py``, outside the port's package: it
+reaches into ``ops/_build.py``'s internals to build variants of the
+sources.  Each variant rewrites ``FwdCfg`` / ``DkvCfg`` entries of
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` in a temporary copy and
 builds ``flash_fwd.cu``, ``flash_bwd.cu`` and ``errors.cu`` into a library
-of its own (every variant's ``nvcc`` at once); a variant may instead change
-how ``dkv_plan`` splits a small grid.  Then, case by case (the float32 rows
-of ``chip_smoke.FLASH_CASES`` and bf16 at head dims 16 and 32), each variant
-runs the forward and dK/dV through the port's wrappers, is held against the
-plain versions (``chip_smoke.fwd_check`` / ``grad_check``; a variant
-outside them is marked ``BAD``) and is timed by ``chip_smoke.time_ms``
-(CUDA-graph replay).  One line per case: each variant's forward and dK/dV
-ms and their share of the f32 bound.  The lines are the evidence for the
-shapes the sources keep; ``chip_smoke.py`` measures the kept kernels.
+of its own (every variant's ``nvcc`` at once).  Then, case by case (the
+float32 rows of ``chip_smoke.FLASH_CASES`` and bf16 at head dims 16 and
+32), each variant runs the forward and dK/dV through the port's wrappers,
+is held against the plain versions (``chip_smoke.fwd_check`` /
+``grad_check``; a variant outside them is marked ``BAD``) and is timed by
+``chip_smoke.time_ms`` (CUDA-graph replay).  One line per case: each
+variant's forward and dK/dV ms and their share of the f32 bound.  The
+lines are the evidence for the shapes the sources keep; ``chip_smoke.py``
+measures the kept kernels.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import sys
 import tempfile
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[2]
+ROOT = Path(__file__).resolve().parents[1]
 FWD, BWD = "flash_fwd.cu", "flash_bwd.cu"
 SOURCES = (FWD, BWD, "errors.cu")
 
@@ -43,8 +45,7 @@ def cfg(src: str, struct: str, D: int, **fields) -> list:
 
 #: Variant -> source rewrites.  "kept" is the sources as they are; the
 #: others are the shapes the kept ones were chosen over (the first design's
-#: 8-row thread tiles, a 32-row dK/dV warp) and the dK/dV split switched off
-#: or sized for two CTAs an SM at every head dim (see ``PLANS``).
+#: 8-row thread tiles, a 32-row dK/dV warp).
 VARIANTS = {
     "kept": [],
     "fwd_mr8": (cfg(FWD, "FwdCfg", 64, MR=8, TC=8, SC=4, NW=4, MINB=3)
@@ -54,15 +55,6 @@ VARIANTS = {
                      MINB=2)
                  + cfg(BWD, "DkvCfg", 16, RW=64, TRs=8, MCs=8, MRn=8, NW=1,
                        MINB=2)),
-    "no_split": [],
-    "split_2_per_sm": [],
-}
-#: Variants that keep the sources and change ``dkv_plan``'s split: the
-#: module attributes they set while they run.
-PLANS = {
-    "no_split": {"FMA_DKV_MAX_SPLITS": 1},
-    "split_2_per_sm": {"FMA_DKV_CTAS_PER_SM": {16: 2, 32: 2, 64: 2,
-                                               128: 2}},
 }
 
 
@@ -141,16 +133,11 @@ def main(argv=None) -> int:
     try:
         built = {}
         started = {name: start_build(_build, home / name, VARIANTS[name])
-                   for name in args.variants if name not in PLANS}
+                   for name in args.variants}
         for name, procs in started.items():
             built[name] = finish_build(_build, home / name, procs)
             print(f"registers/spill bytes {name}: {' '.join(built[name][1])}",
                   flush=True)
-        if "kept" not in built and set(args.variants) & set(PLANS):
-            built["kept"] = finish_build(
-                _build, home / "kept", start_build(_build, home / "kept", []))
-        for name in set(args.variants) & set(PLANS):
-            built[name] = built["kept"]
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -167,8 +154,6 @@ def run_cases(torch, flash, _build, smoke, built, names) -> None:
         (1, 1000, 32, 32, 32, True, 0, "bfloat16")]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    defaults = {attr: getattr(flash, attr) for plan in PLANS.values()
-                for attr in plan}
     for B, T, H, Hkv, D, causal, window, dname in cases:
         dtype = getattr(torch, dname)
         q, do = (torch.randn(B, T, H, D, generator=gen, device=dev)
@@ -183,8 +168,6 @@ def run_cases(torch, flash, _build, smoke, built, names) -> None:
         row = f"B{B} T{T} H{H}/{Hkv} D{D} w{window} {dname}:"
         for name in names:
             _build._lib = built[name][0]
-            for attr, value in defaults.items():
-                setattr(flash, attr, PLANS.get(name, {}).get(attr, value))
             out, lse = flash.flash_kernel_with_lse(q, k, v, **opts)
             delta = flash.flash_delta(do, out)
             dk, dv = flash.flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
@@ -202,8 +185,6 @@ def run_cases(torch, flash, _build, smoke, built, names) -> None:
             row += (f" | {name} fwd {fwd_ms:.4f} ({fwd_bound / fwd_ms:.3f})"
                     f" dkv {dkv_ms:.4f} ({dkv_bound / dkv_ms:.3f})"
                     f"{'' if ok else ' BAD'}")
-        for attr, value in defaults.items():
-            setattr(flash, attr, value)
         print(row, flush=True)
         del q, k, v, do, out, lse, delta, dk, dv, want, want_dk, want_dv
         torch.cuda.empty_cache()

@@ -51,13 +51,7 @@
 //   Shared memory (dkv_smem_bytes) is 96 KB at D64 and 112 KB at D128 in
 //   f32: two CTAs an SM.
 //   The whole group is summed in registers, so only [B, T, Hkv, D] is
-//   written, with no atomics: the result is deterministic.  A grid too
-//   small for the card (GQA at batch 1) would leave the CTA of KV tile 0,
-//   which under a causal mask walks every query tile of every group head,
-//   as the one long chain: there dkv_plan splits each KV tile's query
-//   tiles over `splits` CTAs (grid z), each leaving its f32 sums in a
-//   scratch buffer that dkv_sum_kernel adds in split order (still
-//   deterministic, no atomics).
+//   written, with no atomics: the result is deterministic.
 //   Inputs need d-stride 1 and 4-element-aligned rows; the wrapper copies
 //   any other layout first (ops/flash_attention.py dkv_plan).
 #include <stdint.h>
@@ -309,7 +303,7 @@ __global__ void __launch_bounds__(DkvShape<D>::NT, DkvShape<D>::MINB)
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, float* __restrict__ ws, int H,
+                         T* __restrict__ dv, int H,
                          int Hkv, int T_len, Strides sq, Strides sk,
                          Strides sv, Strides sg, Strides sdk, Strides sdv,
                          float scale, int causal, int window) {
@@ -343,14 +337,9 @@ __global__ void __launch_bounds__(DkvShape<D>::NT, DkvShape<D>::MINB)
   // reach (the last row this KV tile serves is its last col + window - 1),
   // contribute nothing.
   int qt_end = (T_len + BQ - 1) / BQ;
-  const int qt_start = causal ? k0 / BQ : 0;
+  const int qt_first = causal ? k0 / BQ : 0;
   if (causal && window) qt_end = min(qt_end, (k0 + BK + window - 2) / BQ + 1);
-  // Split z of gridDim.z takes its share of those query tiles (dkv_plan
-  // splits a grid too small for the card).
-  const int share = (qt_end - qt_start + gridDim.z - 1) / gridDim.z;
-  const int qt_first = min(qt_end, qt_start + share * int(blockIdx.z));
-  const int qt_last = min(qt_end, qt_first + share);
-  const int n_steps = (qt_last - qt_first) * group;
+  const int n_steps = (qt_end - qt_first) * group;
 
   auto head_of = [&](int s) { return hk * group + s % group; };
   auto q0_of = [&](int s) { return (qt_first + s / group) * BQ; };
@@ -557,19 +546,11 @@ __global__ void __launch_bounds__(DkvShape<D>::NT, DkvShape<D>::MINB)
     }
   }
 
-  // One split: dK and dV in the input dtype.  Several: this split's f32
-  // sums in ws ([2][splits][B, T, Hkv, D]), added in order by
-  // dkv_sum_kernel.
-  const long long numel =
-      static_cast<long long>(gridDim.x) * T_len * D;  // B * T * Hkv * D
-  float* wk = ws + static_cast<long long>(blockIdx.z) * numel;
-  float* wv = wk + static_cast<long long>(gridDim.z) * numel;
+  // dK and dV in the input dtype.
 #pragma unroll
   for (int i = 0; i < MRn; ++i) {
     const int row = wka + tyn + TRn * i;
     if (row >= T_len) continue;
-    const long long at = ((static_cast<long long>(b) * T_len + row) * Hkv + hk)
-                         * D;
 #pragma unroll
     for (int g = 0; g < OC / 4; ++g) {
       const int d = 4 * (txn + TCn * g);
@@ -577,40 +558,9 @@ __global__ void __launch_bounds__(DkvShape<D>::NT, DkvShape<D>::MINB)
                                     dk_acc[i][4 * g + 2], dk_acc[i][4 * g + 3]);
       const float4 xv = make_float4(dv_acc[i][4 * g], dv_acc[i][4 * g + 1],
                                     dv_acc[i][4 * g + 2], dv_acc[i][4 * g + 3]);
-      if (gridDim.z == 1) {
-        tj::st4(dk + b * sdk.b + row * sdk.t + hk * sdk.h + d, xk);
-        tj::st4(dv + b * sdv.b + row * sdv.t + hk * sdv.h + d, xv);
-      } else {
-        tj::st4(wk + at + d, xk);
-        tj::st4(wv + at + d, xv);
-      }
+      tj::st4(dk + b * sdk.b + row * sdk.t + hk * sdk.h + d, xk);
+      tj::st4(dv + b * sdv.b + row * sdv.t + hk * sdv.h + d, xv);
     }
-  }
-}
-
-// dK and dV of a split grid: the splits' f32 sums in ws added in split order
-// (deterministic, no atomics), stored in the input dtype into contiguous dk
-// and dv.  n4: chunks of 4 elements of one gradient.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    dkv_sum_kernel(const float* __restrict__ ws, T* __restrict__ dk,
-                   T* __restrict__ dv, long long n4, int splits) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < 2 * n4; i += stride) {
-    const int which = i >= n4;  // 0: dk, 1: dv
-    const long long c = which ? i - n4 : i;
-    const float* src = ws + (static_cast<long long>(which) * splits * n4 + c) * 4;
-    float4 acc = tj::ld4(src);
-    for (int z = 1; z < splits; ++z) {
-      const float4 x = tj::ld4(src + static_cast<long long>(z) * n4 * 4);
-      acc.x += x.x;
-      acc.y += x.y;
-      acc.z += x.z;
-      acc.w += x.w;
-    }
-    tj::st4((which ? dv : dk) + 4 * c, acc);
   }
 }
 
@@ -618,8 +568,7 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *dq, *dk, *dv;
-  float* ws;
-  int B, T_len, H, Hkv, causal, window, splits;
+  int B, T_len, H, Hkv, causal, window;
   float scale;
   Strides sq, sk, sv, sg, sdq, sdk, sdv;
 };
@@ -656,19 +605,13 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
   if (const int err =
           tj::opt_in_smem(flash_bwd_dkv_kernel<T, D>, smem, &configured))
     return err;
-  const dim3 grid(a.B * a.Hkv, (a.T_len + S::BK - 1) / S::BK, a.splits);
+  const dim3 grid(a.B * a.Hkv, (a.T_len + S::BK - 1) / S::BK);
   flash_bwd_dkv_kernel<T, D><<<grid, S::NT, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.ws, a.H,
-      a.Hkv, a.T_len, a.sq, a.sk, a.sv, a.sg, a.sdk, a.sdv, a.scale, a.causal,
+      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.Hkv,
+      a.T_len, a.sq, a.sk, a.sv, a.sg, a.sdk, a.sdv, a.scale, a.causal,
       a.window);
-  if (a.splits > 1) {
-    const long long n4 = static_cast<long long>(a.B) * a.T_len * a.Hkv * D / 4;
-    const int blocks = static_cast<int>(min((2 * n4 + 255) / 256, 4096LL));
-    dkv_sum_kernel<T><<<blocks, 256, 0, stream>>>(
-        a.ws, static_cast<T*>(a.dk), static_cast<T*>(a.dv), n4, a.splits);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -715,10 +658,6 @@ struct DKV {
   }
 };
 
-bool same(const Strides& a, const Strides& b) {
-  return a.b == b.b && a.t == b.t && a.h == b.h && a.d == b.d;
-}
-
 }  // namespace
 
 // q and dout: [B, T, Hq, D], k and v: [B, T, Hkv, D], dq: [B, T, Hq, D],
@@ -761,16 +700,13 @@ extern "C" int tj_flash_bwd_dq(const void* q, const void* k, const void* v,
 
 // As tj_flash_bwd_dq; dk and dv: [B, T, Hkv, D] by stride.  q, k, v, dout,
 // dk and dv must be chunked (d-stride 1, 4-element aligned); float32 at head
-// dims 16, 32, 64, 128 and bf16 at 16, 32.  splits > 1 splits each KV tile's
-// query rows over that many CTAs (ops/flash_attention.py dkv_plan): ws is
-// then a contiguous f32 [2, splits, B, T, Hkv, D] scratch and dk, dv must be
-// contiguous.
+// dims 16, 32, 64, 128 and bf16 at 16, 32.
 extern "C" int tj_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv,
-                                void* ws, int B, int T_len, int H, int Hkv,
+                                int B, int T_len, int H, int Hkv,
                                 int D, int dtype, int causal, int window,
-                                int splits, float scale,
+                                float scale,
                                 long long qb, long long qt, long long qh,
                                 long long qd, long long kb, long long kt,
                                 long long kh, long long kd, long long vb,
@@ -789,8 +725,6 @@ extern "C" int tj_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.delta = static_cast<const float*>(delta);
   a.dk = dk;
   a.dv = dv;
-  a.ws = static_cast<float*>(ws);
-  a.splits = splits;
   a.B = B;
   a.T_len = T_len;
   a.H = H;
@@ -807,12 +741,6 @@ extern "C" int tj_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (!tj::chunked(q, a.sq, dtype) || !tj::chunked(k, a.sk, dtype) ||
       !tj::chunked(v, a.sv, dtype) || !tj::chunked(dout, a.sg, dtype) ||
       !tj::chunked(dk, a.sdk, dtype) || !tj::chunked(dv, a.sdv, dtype))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Strides dense{static_cast<long long>(T_len) * Hkv * D,
-                      static_cast<long long>(Hkv) * D, D, 1};
-  if (splits < 1 ||
-      (splits > 1 && (ws == nullptr || !same(a.sdk, dense) ||
-                      !same(a.sdv, dense))))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<DKV>(dtype, D, a, static_cast<cudaStream_t>(stream));
 }

@@ -60,9 +60,8 @@ SIGNATURES = {
     # window, scale, then (b, t, h, d) strides of q, k, v, dout and dq,
     # then the stream
     "tj_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F] + [_L] * 20 + [_P],
-    # as tj_flash_bwd_dq with dk, dv for dq, then the f32 scratch of a
-    # split grid; the ints with splits after window; the strides of dk, dv
-    "tj_flash_bwd_dkv": [_P] * 9 + [_I] * 9 + [_F] + [_L] * 24 + [_P],
+    # as tj_flash_bwd_dq with dk, dv for dq and the strides of both
+    "tj_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F] + [_L] * 24 + [_P],
     # q, k, v, o, lse, B, T, Hq, Hkv, D, causal, window, scale, the tensor-map
     # geometry of q, k and v (``geometry``), the (b, t, h, d) strides of o,
     # then the stream

@@ -52,21 +52,14 @@ TMA_BOX_D = 64
 FMA_TILE = 64
 #: Tiles of the f32-FMA forward by head dim, (query rows per CTA, keys per
 #: K/V tile), and its warps a CTA: BQ, BK and NW of csrc/flash_fwd.cu
-#: FwdShape.
+#: FwdShape (the CPU tests derive them from the source's FwdCfg).
 FMA_FWD_TILE = {16: (64, 32), 32: (128, 32), 64: (64, 64), 128: (64, 64)}
 FMA_FWD_WARPS = {16: 2, 32: 4, 64: 4, 128: 4}
 #: Tiles of the f32-FMA dK/dV by head dim, (KV rows per CTA, query rows per
 #: step), and its warps a CTA: BK, BQ and NW of csrc/flash_bwd.cu
-#: DkvShape.
+#: DkvShape (derived from DkvCfg likewise).
 FMA_DKV_TILE = {16: (64, 32), 32: (128, 32), 64: (64, 64), 128: (64, 32)}
 FMA_DKV_WARPS = {16: 2, 32: 4, 64: 4, 128: 4}
-#: CTAs of the f32-FMA dK/dV an SM holds, by head dim (registers and
-#: shared memory: the ``device`` phase's ptxas lines), and the SMs the plans
-#: assume for a tensor that is not on a card (an H100 SXM's).
-FMA_DKV_CTAS_PER_SM = {16: 6, 32: 2, 64: 2, 128: 2}
-FMA_SMS = 132
-#: Most query-row splits of a KV tile in the f32-FMA dK/dV (``dkv_plan``).
-FMA_DKV_MAX_SPLITS = 4
 
 #: Kernel launches since the last reset (chip_smoke.py reads them): the
 #: forward, dQ and dK/dV count every launch, whichever kernel ran; the
@@ -282,13 +275,6 @@ def _fma_copies(operands: dict) -> dict:
     return {name: not fma_ready(t) for name, t in operands.items()}
 
 
-def _sm_count(t) -> int:
-    """SMs of ``t``'s card, or ``FMA_SMS`` for a CPU tensor."""
-    if t.is_cuda:
-        return torch.cuda.get_device_properties(t.device).multi_processor_count
-    return FMA_SMS
-
-
 def fwd_plan(q, k, v) -> dict:
     """How the forward launches on [B, T, H, D] inputs.  Plain Python: the
     wrapper launches by it and the CPU tests check it.  The tensor-core
@@ -318,27 +304,16 @@ def dkv_plan(q, k, v, g) -> dict:
     head), every (b, KV head) in x and the KV tiles in y in ascending order
     (tile 0 sees every query tile under a causal mask: the heaviest first).
     The f32-FMA kernel's tiles are ``FMA_DKV_TILE`` (KV rows, query rows a
-    step) with ``FMA_DKV_WARPS`` warps.  Where that grid has fewer CTAs
-    than the card holds at once (``FMA_DKV_CTAS_PER_SM`` an SM), each KV
-    tile's query tiles are split over ``splits`` CTAs (grid z; at most
-    ``FMA_DKV_MAX_SPLITS`` and the query tiles): the CTA of KV tile 0,
-    which walks every query tile of every group head under a causal mask,
-    would otherwise be the kernel's one long chain.  The splits' f32 sums
-    meet in a scratch buffer and are added in order
-    (``tj_flash_bwd_dkv``)."""
+    step) with ``FMA_DKV_WARPS`` warps."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     kernel = kernel_route(q.dtype, D)
     if kernel == "fma":
         rows_kv, rows_q = FMA_DKV_TILE[D]
         n = _tiles(T, rows_kv)
-        slots = FMA_DKV_CTAS_PER_SM[D] * _sm_count(q)
-        ctas = B * Hkv * n
-        splits = 1 if ctas >= slots else min(
-            FMA_DKV_MAX_SPLITS, -(-slots // ctas), _tiles(T, rows_q))
-        return {"kernel": kernel, "grid": (B * Hkv, n, splits),
+        return {"kernel": kernel, "grid": (B * Hkv, n),
                 "tile_order": list(range(n)), "tile": (rows_kv, rows_q),
-                "warps": FMA_DKV_WARPS[D], "splits": splits,
+                "warps": FMA_DKV_WARPS[D],
                 "copies": _fma_copies({"q": q, "k": k, "v": v, "g": g})}
     rows_kv, rows_q = TC_DKV_TILE
     n = _tiles(T, rows_kv)
@@ -528,15 +503,11 @@ def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool,
         wgmma_dkv_launches += 1
     else:
         q, k, v, g = (fma_operand(x) for x in (q, k, v, g))
-        splits = plan["splits"]
-        ws = (torch.empty((2, splits, B, T, Hkv, D), dtype=torch.float32,
-                          device=q.device) if splits > 1 else None)
         code = lib.tj_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if ws is None else ws.data_ptr(),
             B, T, H, Hkv, D, _build.dtype_code(q),
-            int(causal), int(window), splits, float(scale),
+            int(causal), int(window), float(scale),
             *q.stride(), *k.stride(), *v.stride(), *g.stride(),
             *dk.stride(), *dv.stride(), _build.stream_of(q))
         _build.check(code, "flash_attention_bwd_dkv")
