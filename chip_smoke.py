@@ -32,9 +32,10 @@ script exits non-zero):
    cuDNN, 8 steps on one batch: the loss falls; the first F32_PLAIN_STEPS
    losses equal, within F32_PLAIN_RTOL, a run whose attention goes
    through the plain version (patched in this script only); launches as
-   ``train_launches`` counts them, none on the tensor cores.  Step time
-   (median of steps 2-8), tokens/s, peak memory, the idle share and the
-   three flash kernels' device ms a step.
+   ``train_launches`` counts them, none on the tensor cores; no input of
+   an f32-FMA kernel is copied first (``fma_operand``).  Step time
+   (median of steps 2-8), tokens/s, peak memory, the idle share, the
+   kernels a step and the three flash kernels' device ms a step.
 3. tiny_equivalence: the tiny config in fp32 through the kernels; every
    request of a DecodeService run must get exactly the tokens ``generate``
    gives for its prompt.
@@ -2992,6 +2993,24 @@ def plain_attention(llama, flash):
         llama.flash_attention = real
 
 
+@contextlib.contextmanager
+def counted_copies(flash):
+    """Count the inputs the f32-FMA wrappers copy first (``fma_operand``
+    returning a copy) while the block runs."""
+    real = flash.fma_operand
+    made = [0]
+
+    def operand(t):
+        out = real(t)
+        made[0] += out is not t
+        return out
+    flash.fma_operand = operand
+    try:
+        yield made
+    finally:
+        flash.fma_operand = real
+
+
 def train_124m_f32(torch, llama, llama_elastic, train, flash):
     """The 124M trainer's step (``llama_elastic.make_step_fn``) at float32
     (``LLAMA_CONFIG=124m LLAMA_DTYPE=float32``): head dim 64, so every
@@ -3001,8 +3020,9 @@ def train_124m_f32(torch, llama, llama_elastic, train, flash):
     F32_PLAIN_RTOL, those of a run from the same parameters whose
     attention goes through the plain version (``plain_attention``);
     launches as ``train_launches`` counts them, none on the tensor
-    cores.  Step time (median of steps 2-8), tokens/s, peak memory, the
-    idle share and the flash kernels' device ms a step."""
+    cores; no copy of a kernel's input (``counted_copies``).  Step time
+    (median of steps 2-8), tokens/s, peak memory, the idle share and the
+    flash kernels' device ms a step."""
     dev = torch.device("cuda")
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cudnn.allow_tf32):
@@ -3027,7 +3047,11 @@ def train_124m_f32(torch, llama, llama_elastic, train, flash):
     del plain_fn
     torch.cuda.empty_cache()
     kernel_fn = step_fn()
-    run = width_steps(torch, lambda: kernel_fn(tokens), steps)
+    with counted_copies(flash) as copies:
+        run = width_steps(torch, lambda: kernel_fn(tokens), steps)
+    if copies[0]:
+        raise AssertionError(f"124M f32 train: {copies[0]} kernel inputs "
+                             f"copied first")
     rel = max(abs(a - b) / abs(b) for a, b in
               zip(run["losses"][:F32_PLAIN_STEPS], plain["losses"]))
     if not rel <= F32_PLAIN_RTOL:
@@ -3049,7 +3073,8 @@ def train_124m_f32(torch, llama, llama_elastic, train, flash):
             **run, "tokens_per_s": batch * seq / run["step_s_median"],
             "plain_attention_losses": plain["losses"],
             "plain_loss_max_rel_err": rel, "plain_loss_rtol": F32_PLAIN_RTOL,
-            "launches_per_step": per_step, "step_profile": profile,
+            "launches_per_step": per_step, "fma_operand_copies": copies[0],
+            "step_profile": profile,
             "flash_ms_per_step": profile["picked_ms"]}
 
 

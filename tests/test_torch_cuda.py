@@ -290,6 +290,51 @@ def test_fma_forward_and_dkv_match_plain(dev, dtype, D, H, Hkv, causal,
                                              **opts)))
 
 
+@pytest.mark.parametrize("layout", ["bthd", "bhtd", "wide"])
+@pytest.mark.parametrize("T", [1000, 1023])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 256)])
+@pytest.mark.parametrize("H,Hkv", [(32, 8), (8, 8)])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 32)])
+def test_fma_dq_matches_plain(dev, dtype, D, H, Hkv, causal, window, T,
+                              layout):
+    # The f32-FMA dQ (csrc/flash_bwd.cu tj_flash_bwd_dq) against its plain
+    # version at chip_smoke's BWD_TOL, as the forward and dK/dV above; in
+    # the "wide" layout every input has d-stride 2 and is copied first.
+    g = torch.Generator(device=dev).manual_seed(8)
+    B = 1 if H != Hkv else 8
+
+    def make(heads):
+        if layout == "bhtd":
+            return torch.randn(B, heads, T, D, generator=g, device=dev) \
+                .to(dtype).transpose(1, 2)
+        if layout == "wide":
+            return torch.randn(B, T, heads, 2 * D, generator=g,
+                               device=dev).to(dtype)[..., ::2]
+        return torch.randn(B, T, heads, D, generator=g, device=dev).to(dtype)
+    q, k, v, do = make(H), make(Hkv), make(Hkv), make(H)
+    copies = flash.dq_plan(q, k, v, do)["copies"]
+    assert set(copies.values()) == {layout == "wide"}
+    opts = dict(causal=causal, scale=D ** -0.5, window=window)
+    out, lse = flash.flash_kernel_with_lse(q, k, v, **opts)
+    delta = flash.flash_delta(do, out)
+    ops.reset_launch_counts()
+    dq = flash.flash_bwd_dq_kernel(q, k, v, do, lse, delta, **opts)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dq_wgmma"] == 0
+    key = str(dtype).split(".")[-1]
+    want = flash.flash_bwd_dq_reference(q, k, v, do, lse, delta, **opts)
+    assert dq.dtype == dtype and dq.shape == want.shape
+    check = smoke.grad_check(torch, dq, want, key, smoke.DQ_ATOL_FLOOR_RMS)
+    assert check["ok"], check
+    assert torch.equal(dq, flash.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                     **opts))
+
+
 def test_flash_autograd_goes_through_the_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(4)
     q, k, v = (torch.randn(1, 40, 4, 16, generator=g, device=dev)

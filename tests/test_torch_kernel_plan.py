@@ -85,9 +85,9 @@ def test_fma_grids_are_those_of_the_f32_kernels():
     # Forward: (b, h) in x, 64-row query tiles in y, the last first.
     assert flash.fwd_plan(q, k, v)["grid"] == (8, 3)
     assert flash.fwd_plan(q, k, v)["tile_order"] == [2, 1, 0]
-    # dQ (unchanged kernel): 64-row query tiles in x, (b, h) in y.
-    assert flash.dq_plan(q, k, v, q)["grid"] == (3, 8)
-    assert flash.dq_plan(q, k, v, q)["tile_order"] == [0, 1, 2]
+    # dQ: as the forward.
+    assert flash.dq_plan(q, k, v, q)["grid"] == (8, 3)
+    assert flash.dq_plan(q, k, v, q)["tile_order"] == [2, 1, 0]
     # dK/dV: (b, KV head) in x, 64-row KV tiles in y, tile 0 first.
     assert flash.dkv_plan(q, k, v, q)["grid"] == (4, 3)
     assert flash.dkv_plan(q, k, v, q)["tile_order"] == [0, 1, 2]
@@ -117,6 +117,30 @@ def fma_shapes(D: int):
     fwd_tile = (f["NW"] * f["MR"] * (32 // f["TC"]), f["TC"] * f["SC"])
     dkv_tile = (b["NW"] * b["RW"], (32 // b["TRs"]) * b["MCs"])
     return fwd_tile, f["NW"], dkv_tile, b["NW"]
+
+
+def fma_dq_shape(D: int):
+    """The f32-FMA dQ's (BQ, BK) and NW at head dim ``D`` (csrc/flash_bwd.cu
+    DqShape from DqCfg)."""
+    c = _cfg("flash_bwd.cu", "DqCfg")[D]
+    return (c["NW"] * c["MR"] * (32 // c["TC"]), c["TC"] * c["SC"]), c["NW"]
+
+
+@pytest.mark.parametrize("D", flash.KERNEL_HEAD_DIMS)
+def test_fma_dq_tiles_are_those_of_the_source(D):
+    # FMA_DQ_TILE and FMA_DQ_WARPS copy DqCfg: a change to the source shows
+    # here.
+    cfg = _cfg("flash_bwd.cu", "DqCfg")
+    assert set(cfg) == set(flash.KERNEL_HEAD_DIMS)
+    tile, warps = fma_dq_shape(D)
+    assert flash.FMA_DQ_TILE[D] == tile
+    assert flash.FMA_DQ_WARPS[D] == warps
+    # dq_smem_bytes at float32 (Q, dO, ST stages of K and V, dZ, lse and
+    # delta) stays within the 227 KB a CTA may take.
+    rows_q, rows_kv = tile
+    smem = 4 * ((2 * rows_q + 2 * cfg[D]["ST"] * rows_kv) * D
+                + rows_q * rows_kv + 2 * rows_q)
+    assert cfg[D]["ST"] in (1, 2) and smem <= 232448
 
 
 @pytest.mark.parametrize("D", flash.KERNEL_HEAD_DIMS)
@@ -159,6 +183,11 @@ def test_fma_tiles_by_head_dim(dtype, D, T):
     # A KV tile is a whole number of the steps' query tiles, so a causal
     # CTA starts its loop at the step of its own first row.
     assert dkv_tile[0] % dkv_tile[1] == 0
+    dq_tile, dq_warps = fma_dq_shape(D)
+    dq = flash.dq_plan(q, k, v, q)
+    assert (dq["kernel"], dq["tile"], dq["warps"]) == ("fma", dq_tile,
+                                                       dq_warps)
+    assert dq["grid"] == (B * H, -(-T // dq_tile[0]))
 
 
 @pytest.mark.parametrize("T,tiles", [(32, 1), (130, 3), (1000, 16),
@@ -207,6 +236,23 @@ def test_fma_forward_issues_the_heaviest_query_tiles_first(T, tiles):
     plan = flash.fwd_plan(q, k, v)
     assert plan["grid"] == (8 * 12, tiles)
     assert plan["tile_order"] == list(range(tiles - 1, -1, -1))
+
+
+@pytest.mark.parametrize("T,tiles", [(64, 1), (130, 3), (1000, 16),
+                                     (1024, 16), (1023, 16)])
+def test_fma_dq_issues_the_heaviest_query_tiles_first(T, tiles):
+    # The 124M shape at float32: under a causal mask query tile n walks the
+    # K/V tiles up to its last row, so a CTA's loop grows with n and the
+    # grid issues the last tile first (every (b, h) of a tile before the
+    # next tile).
+    q, k, v = _qkv(8, T, 12, 12, 64, torch.float32)
+    plan = flash.dq_plan(q, k, v, q)
+    assert plan["grid"] == (8 * 12, tiles)
+    assert plan["tile_order"] == list(range(tiles - 1, -1, -1))
+    rows_q, rows_kv = plan["tile"]
+    work = [min(-(-(n + 1) * rows_q // rows_kv), -(-T // rows_kv))
+            for n in plan["tile_order"]]
+    assert work == sorted(work, reverse=True)
 
 
 def test_tensor_maps_of_contiguous_inputs():
@@ -296,10 +342,9 @@ def test_copies_for_the_kernel_are_fresh_and_contiguous():
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 32),
                                      (torch.float32, 128)])
 def test_the_fma_plan_has_no_maps(plan_of, dtype, D):
-    # The f32-FMA kernels take no tensor maps.  The forward and dK/dV copy
-    # 4-element chunks (cp.async): contiguous inputs are read in place, and
-    # an input with d-stride 2 is copied first.  dQ reads by stride and
-    # copies nothing.
+    # The f32-FMA kernels take no tensor maps.  They copy 4-element chunks
+    # (cp.async): contiguous inputs are read in place, and an input with
+    # d-stride 2 is copied first.
     q, k, v = _qkv(1, 64, 4, 4, D, dtype)
     wide = torch.zeros(1, 64, 4, 2 * D, dtype=dtype)[..., ::2]
 
@@ -309,10 +354,7 @@ def test_the_fma_plan_has_no_maps(plan_of, dtype, D):
     got = plan(q, k, v)
     assert got["kernel"] == "fma"
     assert "maps" not in got
-    if plan_of == "dq":
-        assert "copies" not in got and "copies" not in plan(q, wide, wide)
-        return
-    names = ["q", "k", "v"] + (["g"] if plan_of == "dkv" else [])
+    names = ["q", "k", "v"] + (["g"] if plan_of != "fwd" else [])
     assert got["copies"] == dict.fromkeys(names, False)
     assert plan(q, wide, wide)["copies"] == {
         name: name in ("k", "v") for name in names}
@@ -340,6 +382,28 @@ def test_the_fma_copy_rule(dtype):
         "q": True, "k": False, "v": False}
     assert flash.dkv_plan(q, k, v, padded)["copies"] == {
         "q": False, "k": False, "v": False, "g": True}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_fma_dq_copy_rule(dtype):
+    # dq_plan's copies follow fma_ready for each of q, k, v and dO.
+    B, T, H, D = 1, 70, 4, 32
+    base = torch.arange(1 + B * T * H * D, dtype=torch.float32).to(dtype)
+    off = base[1:].view(B, T, H, D)
+    padded = torch.zeros(B, T, H * D + 2, dtype=dtype)[..., :H * D] \
+        .view(B, T, H, D)
+    wide = torch.zeros(B, T, H, 2 * D, dtype=dtype)[..., ::2]
+    bhtd = torch.zeros(B, H, T, D, dtype=dtype).transpose(1, 2)
+    q, k, v = _qkv(B, T, H, H, D, dtype)
+    assert flash.dq_plan(q, k, v, q)["copies"] == dict.fromkeys(
+        ("q", "k", "v", "g"), False)
+    assert flash.dq_plan(off, wide, v, padded)["copies"] == {
+        "q": True, "k": True, "v": False, "g": True}
+    assert flash.dq_plan(bhtd, k, padded, bhtd)["copies"] == {
+        "q": False, "k": False, "v": True, "g": False}
+    for t in (off, padded, wide, bhtd, q):
+        assert flash.dq_plan(t, k, v, q)["copies"]["q"] == \
+            (not flash.fma_ready(t))
 
 
 class _Lib:
@@ -426,6 +490,40 @@ def test_fma_forward_and_dkv_launch_on_chunk_ready_inputs(lib, D):
     assert counts["flash_attention_fwd"] == 1
     assert counts["flash_attention_bwd_dkv"] == 1
     assert counts["flash_attention_fwd_wgmma"] == 0
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 32)])
+def test_fma_dq_launches_on_chunk_ready_inputs(lib, dtype, D):
+    T, H = 70, 4
+    q = torch.randn(1, T, H, D).to(dtype)
+    g = torch.randn(1, T, H, D).to(dtype)
+    # k and v with d-stride 2 and q one element off the 4-element grid:
+    # the wrapper hands the kernel contiguous copies (d-stride 1 in the
+    # strides it passes, fresh pointers); dO is read in place.
+    k, v = (torch.randn(1, T, H, 2 * D).to(dtype)[..., ::2]
+            for _ in range(2))
+    q_off = torch.cat([torch.zeros(1, dtype=dtype), q.flatten()])[1:] \
+        .view(1, T, H, D)
+    assert not flash.fma_ready(q_off)
+    lse = torch.zeros(1, H, T)
+    with torch.no_grad():
+        dq = flash.flash_bwd_dq_kernel(q_off, k, v, g, lse, lse,
+                                       causal=True, scale=D ** -0.5,
+                                       window=0)
+    assert lib.calls == ["tj_flash_bwd_dq"]
+    (args,) = lib.args
+    # (b, t, h, d) strides of q, k, v, dO and dq after the 16 leading
+    # arguments.
+    assert args[16:36] == 5 * (T * H * D, H * D, D, 1)
+    assert args[0] != q_off.data_ptr()
+    assert args[1] != k.data_ptr() and args[2] != v.data_ptr()
+    assert args[3] == g.data_ptr() and args[6] == dq.data_ptr()
+    assert args[7:15] == (1, T, H, H, D, _build.dtype_code(q), 1, 0)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dq_wgmma"] == 0
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),

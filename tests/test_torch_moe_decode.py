@@ -199,10 +199,16 @@ class TestCapacityWarning:
             jmd.prefill(jp, jnp.asarray(prompt, jnp.int32), jc, 8)
         with pytest.warns(RuntimeWarning) as got:
             tmd.prefill(tp, torch.from_numpy(prompt), tc, 8)
-        assert [str(w.message) for w in got] == \
-            [str(w.message) for w in want]
+
+        # Only the RuntimeWarnings: a record also catches whatever the
+        # garbage collector reports meanwhile (a ResourceWarning for a
+        # socket an earlier test left open).
+        def messages(record):
+            return [str(w.message) for w in record
+                    if issubclass(w.category, RuntimeWarning)]
+        assert messages(got) == messages(want)
         assert "capacity_factor=1.25 < n_experts/experts_per_token=2" in \
-            str(got[0].message)
+            messages(got)[0]
 
     def test_silent_at_a_dropless_capacity(self, setup):
         _, _, _, tp = setup

@@ -8,8 +8,9 @@
 // _bwd_dq_kernel (tj_flash_bwd_dq) and _bwd_dkv_kernel (tj_flash_bwd_dkv),
 // both launched by _flash_backward.  Same math, all in f32:
 //   z  = (q . k) * scale            (the forward has (q * scale) . k)
-//   p  = exp(z - lse) where the mask lets (row, col) through, else exactly 0
-//        (dK/dV: exp2(z * log2(e) - lse * log2(e)), one MUFU instruction)
+//   p  = exp(z - lse) where the mask lets (row, col) through, else exactly 0,
+//        as exp2(z * log2(e) - lse * log2(e)), one MUFU instruction (both
+//        kernels compute it alike, so their p agree bit for bit)
 //   dp = dO . v
 //   dz = p * (dp - delta) * scale   (delta = rowsum(dO * O), computed outside)
 //   dq = sum over keys of dz * k
@@ -24,36 +25,52 @@
 // against 4 bytes per element of q, k, v, dO and the gradients in f32, so
 // both are bound by the f32 rate at every T that matters.  What both keep
 // from the TPU design is what keeps HBM traffic O(T * D): the [T, T]
-// probabilities never leave the block.
+// probabilities never leave the block.  Both are register-blocked like an
+// SGEMM: f32 FMAs outrun shared memory (128 FMAs against 128 bytes a clock
+// an SM), so a thread holds a block of each product and every shared load
+// is 16 bytes (8 for a bf16 chunk, widened to f32 as it is read), from
+// tiles stored row-major in 4-element chunks under an XOR swizzle
+// (fma_tile.cuh).  The shapes were chosen by timing variants on the card
+// (tools/fma_sweep.py, PERF.md).
 //
-// - dQ: 256 threads, one block per (64-row query tile, b, h), tiles staged
-//   in shared memory as f32 (rows padded to D + 1 floats), thread (ty, tx)
-//   owning rows 4*ty .. 4*ty+3 and columns tx + 16*j of each 64 x 64 score
-//   tile.  Q, dO, lse and delta of the tile stay in shared memory while the
-//   block loops over K/V tiles from the window's first tile to the causal
-//   diagonal (the bounds of the TPU kernel and of flash_fwd.cu).  Each step
-//   writes dz to shared memory and adds dz . K to the thread's dq rows
-//   (columns tx + 16*c).  Inputs are taken by stride.
-// - dK/dV: a register-blocked SGEMM design like flash_fwd.cu's.  One block
-//   of NW warps per (BK-row KV tile, b, KV head), KV tiles issued in order
-//   from tile 0 (under a causal mask the heaviest: it sees every query
-//   tile); each warp owns RW key rows (DkvShape).  K and V of the tile stay
-//   in shared memory while the block loops over BQ-row query tiles, from
-//   the causal diagonal to the window bound, and inside that over the
-//   group's query heads h = hk * group + g, as the TPU kernel does.  A step
-//   runs four products: S^T = K Q^T and dP^T = V dO^T with MRs key rows x
-//   MCs query columns a thread, then dV += P^T dO and dK += dZ^T Q with MRn
-//   key rows x OC columns a thread, P and dZ passing through a shared region
-//   of the warp's own.  Q and dO (and lse, delta) arrive by cp.async into
-//   one buffer each, chunk-swizzled as in flash_fwd.cu: dO_{s+1} is queued
-//   once every warp has finished dV_s and overlaps dK_s, Q_{s+1} once every
-//   warp has finished dK_s and overlaps dP_{s+1}; three barriers a step.
-//   Shared memory (dkv_smem_bytes) is 96 KB at D64 and 112 KB at D128 in
-//   f32: two CTAs an SM.
-//   The whole group is summed in registers, so only [B, T, Hkv, D] is
-//   written, with no atomics: the result is deterministic.
-//   Inputs need d-stride 1 and 4-element-aligned rows; the wrapper copies
-//   any other layout first (ops/flash_attention.py dkv_plan).
+// - dQ: one CTA of NW warps per (BQ-row query tile, b, h), every (b, h) in
+//   grid x and the query tiles in y from the last (under a causal mask the
+//   heaviest) to the first; the KV head is h / (Hq / Hkv), so grouped KV is
+//   never repeated.  Each warp owns RW whole query rows (DqShape), as in
+//   flash_fwd.cu.  Q, dO, lse and delta of the tile arrive once by
+//   cp.async; the block loops over BK-key K/V tiles from the window's first
+//   tile to the causal diagonal (the bounds of the TPU kernel).  A step
+//   runs three products with MR query rows a thread: dP = dO V^T and S =
+//   Q K^T (SC key columns a thread), then p and dz in registers, dz into a
+//   shared region of the warp's own (key-major, the thread's rows
+//   contiguous; one __syncwarp, no block barrier), then dQ += dZ K (OC
+//   columns a thread).  K and V sit in ST stages: with two, tile t + 1 is
+//   queued as tile t starts (one barrier a tile); with one, once every
+//   warp is done with tile t (two).  A warp skips a tile none of its rows
+//   sees and tests the mask element by element only on a tile its rows see
+//   in part (the diagonal, the window's edge, a ragged last tile).  Shared
+//   memory (dq_smem_bytes) is 112.5 KB at D64 and 104 KB at D128 in f32:
+//   two CTAs an SM.  Each CTA sums its own dQ rows over the keys in a
+//   fixed order and writes them once: no atomics, deterministic.
+// - dK/dV: one block of NW warps per (BK-row KV tile, b, KV head), KV tiles
+//   issued in order from tile 0 (under a causal mask the heaviest: it sees
+//   every query tile); each warp owns RW key rows (DkvShape).  K and V of
+//   the tile stay in shared memory while the block loops over BQ-row query
+//   tiles, from the causal diagonal to the window bound, and inside that
+//   over the group's query heads h = hk * group + g, as the TPU kernel
+//   does.  A step runs four products: S^T = K Q^T and dP^T = V dO^T with
+//   MRs key rows x MCs query columns a thread, then dV += P^T dO and dK +=
+//   dZ^T Q with MRn key rows x OC columns a thread, P and dZ passing
+//   through a shared region of the warp's own.  Q and dO (and lse, delta)
+//   arrive by cp.async into one buffer each: dO_{s+1} is queued once every
+//   warp has finished dV_s and overlaps dK_s, Q_{s+1} once every warp has
+//   finished dK_s and overlaps dP_{s+1}; three barriers a step.  Shared
+//   memory (dkv_smem_bytes) is 96 KB at D64 and 112 KB at D128 in f32: two
+//   CTAs an SM.  The whole group is summed in registers, so only [B, T,
+//   Hkv, D] is written, with no atomics: the result is deterministic.
+// Inputs need d-stride 1 and 4-element-aligned rows (cp.async chunks); the
+// wrapper copies any other layout first (ops/flash_attention.py dq_plan,
+// dkv_plan).
 #include <stdint.h>
 
 #include <type_traits>
@@ -63,78 +80,64 @@
 
 namespace {
 
-constexpr int kB = 64;  // query and key tile rows
-constexpr int kThreads = 256;
-
 using tj::Strides;
 
+// dQ tiles per head dim: MR query rows a thread, TC threads across the key
+// (and dQ) columns of a row group, SC score columns a thread, NW warps a
+// CTA, ST stages of K and V (1 or 2), MINB CTAs an SM for
+// __launch_bounds__.  ops/flash_attention.py FMA_DQ_TILE mirrors BQ, BK and
+// FMA_DQ_WARPS NW.
 template <int D>
+struct DqCfg;
+template <>
+struct DqCfg<16> {
+  static constexpr int MR = 4, TC = 4, SC = 8, NW = 2, ST = 2, MINB = 4;
+};
+template <>
+struct DqCfg<32> {
+  static constexpr int MR = 8, TC = 8, SC = 4, NW = 4, ST = 2, MINB = 2;
+};
+template <>
+struct DqCfg<64> {
+  static constexpr int MR = 4, TC = 8, SC = 8, NW = 4, ST = 2, MINB = 2;
+};
+template <>
+struct DqCfg<128> {
+  static constexpr int MR = 4, TC = 8, SC = 4, NW = 4, ST = 1, MINB = 2;
+};
+
+template <int D>
+struct DqShape : DqCfg<D> {
+  using C = DqCfg<D>;
+  static constexpr int TR = 32 / C::TC;     // row groups a warp
+  static constexpr int OC = D / C::TC;      // dQ columns a thread
+  static constexpr int RW = C::MR * TR;     // query rows a warp
+  static constexpr int PC = C::MR / 4;      // chunks of a thread's dZ rows
+  static constexpr int BQ = C::NW * RW;     // query rows a CTA
+  static constexpr int BK = C::TC * C::SC;  // keys a tile
+  static constexpr int NT = 32 * C::NW;     // threads a CTA
+  static constexpr int NCH = D / 4;         // chunks a row
+  // Swizzle masks: Q and dO rows read at one chunk by the TR row groups, K
+  // and V rows by the TC column threads, dZ rows (keys) written by the TC
+  // column threads.
+  static constexpr int QM = tj::cmin(tj::cmin(TR, NCH), 8) - 1;
+  static constexpr int KM = tj::cmin(tj::cmin(C::TC, NCH), 8) - 1;
+  static constexpr int PM = tj::cmin(tj::cmin(RW / 4, C::TC), 8) - 1;
+  static_assert(OC % 4 == 0 && C::MR % 4 == 0 && (C::ST == 1 || C::ST == 2),
+                "dQ tile shape");
+};
+
+template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
-  // Q, dO, K, V tiles; dz; lse and delta.
-  return sizeof(float) * (4 * static_cast<size_t>(kB) * (D + 1) +
-                          static_cast<size_t>(kB) * (kB + 1) + 2 * kB);
-}
-
-// Stage rows t0 .. t0 + 63 of one head of x ([B, T, H, D] by stride) into
-// shared memory as f32, zero past T.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
-                                          const Strides& s, int t0,
-                                          int T_len) {
-  constexpr int DP = D + 1;
-  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = t0 + r;
-    dst[r * DP + c] = t < T_len ? tj::to_f32(base[t * s.t + c * s.d]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ bool visible(int row, int col, int T_len,
-                                        int causal, int window) {
-  bool ok = row < T_len && col < T_len;
-  if (causal) {
-    ok = ok && col <= row;
-    if (window) ok = ok && col > row - window;
-  }
-  return ok;
-}
-
-// The 4 x 4 score and dp entries of thread (ty, tx) for one 64 x 64 tile:
-// rows 4*ty + i of sQ and sG (dO), columns tx + 16*j of sK and sV.
-template <int D>
-__device__ __forceinline__ void tile_products(const float* sQ, const float* sG,
-                                              const float* sK, const float* sV,
-                                              int ty, int tx, float s[4][4],
-                                              float dp[4][4]) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[4], gv[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = sQ[(ty * 4 + i) * DP + d];
-      gv[i] = sG[(ty * 4 + i) * DP + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = sK[(tx + 16 * j) * DP + d];
-      vv[j] = sV[(tx + 16 * j) * DP + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-      }
-  }
+  using S = DqShape<D>;
+  // Q, dO (the CTA's rows) and ST stages of K and V, in the input dtype;
+  // dZ (f32, per warp); lse and delta of the CTA's rows.
+  return sizeof(T) * (2 * S::BQ + 2 * S::ST * S::BK) * D +
+         sizeof(float) * (S::BQ * S::BK + 2 * S::BQ);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(DqShape<D>::NT, DqShape<D>::MINB)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
@@ -142,92 +145,207 @@ __global__ void __launch_bounds__(kThreads)
                         int H, int Hkv, int T_len, Strides sq, Strides sk,
                         Strides sv, Strides sg, Strides sdq, float scale,
                         int causal, int window) {
-  constexpr int DP = D + 1;
-  constexpr int PP = kB + 1;
-  constexpr int DC = D / 16;  // dq columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sG = sQ + kB * DP;
-  float* sK = sG + kB * DP;
-  float* sV = sK + kB * DP;
-  float* sDZ = sV + kB * DP;
-  float* sL = sDZ + kB * PP;
-  float* sDelta = sL + kB;
+  using S = DqShape<D>;
+  constexpr int MR = S::MR, TC = S::TC, TR = S::TR, SC = S::SC, OC = S::OC,
+                RW = S::RW, PC = S::PC, BQ = S::BQ, BK = S::BK, NT = S::NT,
+                NCH = S::NCH, ST = S::ST;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sG = sQ + BQ * D;
+  T* sKV = sG + BQ * D;  // stage s: K at sKV + 2 s BK D, V after it
+  float* sZ = reinterpret_cast<float*>(sKV + ST * 2 * BK * D);
+  float* sL = sZ + BQ * BK;
+  float* sDelta = sL + BQ;
 
-  const int q0 = blockIdx.x * kB;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int n_q = (T_len + BQ - 1) / BQ;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.y)) * BQ;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = lane / TC, tx = lane % TC;
+  const int wr = warp * RW;          // the warp's first row in the tile
+  const int wa = q0 + wr;            // ... and in the sequence
+  const int wb = wa + RW - 1;
+  const T* kb = k + b * sk.b + hk * sk.h;
+  const T* vb = v + b * sv.b + hk * sv.h;
 
-  const T* kbase = k + b * sk.b + hk * sk.h;
-  const T* vbase = v + b * sv.b + hk * sv.h;
-  load_tile<T, D>(sQ, q + b * sq.b + h * sq.h, sq, q0, T_len);
-  load_tile<T, D>(sG, dout + b * sg.b + h * sg.h, sg, q0, T_len);
-  if (tid < kB) {
-    const int t = q0 + tid;
-    const long long at = (static_cast<long long>(b) * H + h) * T_len + t;
-    sL[tid] = t < T_len ? lse[at] : 0.f;
-    sDelta[tid] = t < T_len ? delta[at] : 0.f;
+  const int n_kv = (T_len + BK - 1) / BK;
+  const int kv_end = causal ? min((q0 + BQ + BK - 1) / BK, n_kv) : n_kv;
+  const int kv_start = (causal && window) ? max(q0 - window + 1, 0) / BK : 0;
+
+  auto load_kv = [&](int kt, int stage) {
+    T* dst = sKV + stage * (2 * BK * D);
+    tj::load_rows<T, D, BK, NT, S::KM>(dst, kb, sk.t, kt * BK, T_len);
+    tj::load_rows<T, D, BK, NT, S::KM>(dst + BK * D, vb, sv.t, kt * BK,
+                                       T_len);
+  };
+  tj::load_rows<T, D, BQ, NT, S::QM>(sQ, q + b * sq.b + h * sq.h, sq.t, q0,
+                                     T_len);
+  tj::load_rows<T, D, BQ, NT, S::QM>(sG, dout + b * sg.b + h * sg.h, sg.t,
+                                     q0, T_len);
+  {
+    const long long at = (static_cast<long long>(b) * H + h) * T_len;
+    for (int i = tid; i < BQ; i += NT) {
+      const bool ok = q0 + i < T_len;
+      tj::cp_f32(sL + i, lse + at + (ok ? q0 + i : 0), ok);
+      tj::cp_f32(sDelta + i, delta + at + (ok ? q0 + i : 0), ok);
+    }
   }
+  load_kv(kv_start, 0);
+  tj::cp_commit();
 
-  float acc[4][DC];
+  float acc[MR][OC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MR; ++i)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
 
-  const int n_kv = (T_len + kB - 1) / kB;
-  const int kv_end = causal ? min((q0 + kB + kB - 1) / kB, n_kv) : n_kv;
-  const int kv_start = (causal && window) ? max(q0 - window + 1, 0) / kB : 0;
+  // The thread's rows of Q and dO, of dZ (a key row of the warp's region).
+  const T* sQt = sQ + (wr + ty) * D;
+  const T* sGt = sG + (wr + ty) * D;
+  const int xq = ty & S::QM;
+  const int xk = tx & S::KM;
+  float* zw = sZ + warp * (BK * RW);
+  const int xpw = tx & S::PM;
 
   for (int kt = kv_start; kt < kv_end; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();  // the previous tile's reads of sK, sV and sDZ are done
-    load_tile<T, D>(sK, kbase, sk, k0, T_len);
-    load_tile<T, D>(sV, vbase, sv, k0, T_len);
-    __syncthreads();
+    const int k0 = kt * BK;
+    const int stage = ST == 2 ? (kt - kv_start) & 1 : 0;
+    tj::cp_wait<0>();
+    __syncthreads();  // K_t and V_t landed (Q, dO, lse and delta with the
+                      // first); every warp is done with tile t - 1
+    if (ST == 2 && kt + 1 < kv_end) {
+      load_kv(kt + 1, stage ^ 1);
+      tj::cp_commit();
+    }
+    const T* sK = sKV + stage * (2 * BK * D);
+    const T* sV = sK + BK * D;
 
-    float s[4][4], dp[4][4];
-    tile_products<D>(sQ, sG, sK, sV, ty, tx, s, dp);
+    // Whether the warp's rows see any key of the tile, and all of them
+    // (rows past T see zeros: dz is 0 there, and the rows are not written).
+    const bool active =
+        wa < T_len &&
+        (!causal || (k0 <= wb && (!window || k0 + BK - 1 > wa - window)));
+    const bool full =
+        k0 + BK <= T_len &&
+        (!causal || (k0 + BK - 1 <= wa && (!window || k0 > wb - window)));
+
+    if (active) {
+      const T* sKt = sK + tx * D;
+      const T* sVt = sV + tx * D;
+      // dP = dO V^T, then S = Q K^T, d ascending (as dK/dV sums them).
+      float dp[MR][SC], s[MR][SC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+      for (int i = 0; i < MR; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = visible(q0 + r, k0 + c, T_len, causal, window)
-                            ? expf(s[i][j] * scale - sL[r])
-                            : 0.f;
-        sDZ[r * PP + c] = p * (dp[i][j] - sDelta[r]) * scale;
+        for (int j = 0; j < SC; ++j) dp[i][j] = s[i][j] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < NCH; ++c) {
+        const int cg = (c ^ xq) << 2, cv = (c ^ xk) << 2;
+        float4 gf[MR];
+#pragma unroll
+        for (int i = 0; i < MR; ++i) gf[i] = tj::ld4(sGt + i * TR * D + cg);
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          const float4 vf = tj::ld4(sVt + j * TC * D + cv);
+#pragma unroll
+          for (int i = 0; i < MR; ++i) dp[i][j] = tj::dot4(gf[i], vf, dp[i][j]);
+        }
+      }
+#pragma unroll 4
+      for (int c = 0; c < NCH; ++c) {
+        const int cq = (c ^ xq) << 2, ck = (c ^ xk) << 2;
+        float4 qf[MR];
+#pragma unroll
+        for (int i = 0; i < MR; ++i) qf[i] = tj::ld4(sQt + i * TR * D + cq);
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          const float4 kf = tj::ld4(sKt + j * TC * D + ck);
+#pragma unroll
+          for (int i = 0; i < MR; ++i) s[i][j] = tj::dot4(qf[i], kf, s[i][j]);
+        }
+      }
+      // p = exp(z - lse) with z = (q . k) * scale where the mask lets the
+      // pair through, else exactly 0; dz = p * (dp - delta) * scale, in s.
+#pragma unroll
+      for (int i = 0; i < MR; ++i) {
+        const int rl = wr + ty + TR * i, row = q0 + rl;
+        const float lseL = sL[rl] * tj::kLog2e;
+        const float dl = sDelta[rl];
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          bool ok = true;
+          if (!full) {
+            const int col = k0 + tx + TC * j;
+            ok = col < T_len;
+            if (causal) {
+              ok = ok && col <= row;
+              if (window) ok = ok && col > row - window;
+            }
+          }
+          const float z = s[i][j] * scale;
+          const float p = ok ? tj::ex2(fmaf(z, tj::kLog2e, -lseL)) : 0.f;
+          s[i][j] = p * (dp[i][j] - dl) * scale;
+        }
+      }
+      // dZ, key-major: the thread's MR rows (MR * ty + i) as PC chunks.
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        float* zrow = zw + (tx + TC * j) * RW;
+#pragma unroll
+        for (int u = 0; u < PC; ++u)
+          *reinterpret_cast<float4*>(zrow + (((PC * ty + u) ^ xpw) << 2)) =
+              make_float4(s[4 * u][j], s[4 * u + 1][j], s[4 * u + 2][j],
+                          s[4 * u + 3][j]);
+      }
+      __syncwarp();
+      // dQ += dZ K over the tile's keys, in order.
+#pragma unroll 8
+      for (int c = 0; c < BK; ++c) {
+        const float* zrow = zw + c * RW;
+        const int xz = c & S::PM, xc = c & S::KM;
+        float z[MR];
+#pragma unroll
+        for (int u = 0; u < PC; ++u) {
+          const float4 x = tj::ld4(zrow + (((PC * ty + u) ^ xz) << 2));
+          z[4 * u] = x.x;
+          z[4 * u + 1] = x.y;
+          z[4 * u + 2] = x.z;
+          z[4 * u + 3] = x.w;
+        }
+#pragma unroll
+        for (int g = 0; g < OC / 4; ++g) {
+          const float4 kk =
+              tj::ld4(sK + c * D + (((tx + TC * g) ^ xc) << 2));
+#pragma unroll
+          for (int i = 0; i < MR; ++i) {
+            acc[i][4 * g] = fmaf(z[i], kk.x, acc[i][4 * g]);
+            acc[i][4 * g + 1] = fmaf(z[i], kk.y, acc[i][4 * g + 1]);
+            acc[i][4 * g + 2] = fmaf(z[i], kk.z, acc[i][4 * g + 2]);
+            acc[i][4 * g + 3] = fmaf(z[i], kk.w, acc[i][4 * g + 3]);
+          }
+        }
       }
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      float dz[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dz[i] = sDZ[(ty * 4 + i) * PP + c];
-#pragma unroll
-      for (int dc = 0; dc < DC; ++dc) {
-        const float kk = sK[c * DP + tx + 16 * dc];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][dc] = fmaf(dz[i], kk, acc[i][dc]);
-      }
+    if (ST == 1 && kt + 1 < kv_end) {
+      __syncthreads();  // every warp is done with K_t and V_t
+      load_kv(kt + 1, 0);
+      tj::cp_commit();
     }
   }
 
+  // dQ in the input dtype.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < MR; ++i) {
+    const int row = wa + ty + TR * i;
     if (row >= T_len) continue;
     T* out = dq + b * sdq.b + row * sdq.t + h * sdq.h;
 #pragma unroll
-    for (int dc = 0; dc < DC; ++dc)
-      out[(tx + 16 * dc) * sdq.d] = tj::from_f32<T>(acc[i][dc]);
+    for (int g = 0; g < OC / 4; ++g)
+      tj::st4(out + 4 * (tx + TC * g),
+              make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                          acc[i][4 * g + 3]));
   }
 }
 
@@ -575,13 +693,14 @@ struct Args {
 
 template <typename T, int D>
 int launch_dq(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+  using S = DqShape<D>;
+  constexpr size_t smem = dq_smem_bytes<T, D>();
   static bool configured = false;
-  if (const int err =
-          tj::opt_in_smem(flash_bwd_dq_kernel<T, D>, smem, &configured))
+  if (const int err = tj::opt_in_max_smem(flash_bwd_dq_kernel<T, D>, smem,
+                                          &configured))
     return err;
-  const dim3 grid((a.T_len + kB - 1) / kB, a.B * a.H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(a.B * a.H, (a.T_len + S::BQ - 1) / S::BQ);
+  flash_bwd_dq_kernel<T, D><<<grid, S::NT, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.dq), a.H, a.Hkv, a.T_len, a.sq, a.sk, a.sv,
@@ -594,16 +713,8 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
   using S = DkvShape<D>;
   constexpr size_t smem = dkv_smem_bytes<T, D>();
   static bool configured = false;
-  if (!configured) {
-    // Two CTAs of up to 113 KB an SM need the largest shared carve-out.
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<T, D>,
-        cudaFuncAttributePreferredSharedMemoryCarveout,
-        cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (const int err =
-          tj::opt_in_smem(flash_bwd_dkv_kernel<T, D>, smem, &configured))
+  if (const int err = tj::opt_in_max_smem(flash_bwd_dkv_kernel<T, D>, smem,
+                                          &configured))
     return err;
   const dim3 grid(a.B * a.Hkv, (a.T_len + S::BK - 1) / S::BK);
   flash_bwd_dkv_kernel<T, D><<<grid, S::NT, smem, stream>>>(
@@ -639,30 +750,38 @@ int dispatch(int dtype, int D, const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Both kernels serve float32 at every head dim and bf16 at 16 and 32 (bf16
+// at 64 and 128 takes flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu):
+// those are not instantiated.
+template <typename T, int D>
+constexpr bool kFmaRoute = !(std::is_same<T, __nv_bfloat16>::value && D > 32);
+
 template <typename T, int D>
 struct DQ {
   static int run(const Args& a, cudaStream_t s) {
-    return launch_dq<T, D>(a, s);
+    if constexpr (kFmaRoute<T, D>)
+      return launch_dq<T, D>(a, s);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 };
 
-// The dK/dV kernel serves float32 at every head dim and bf16 at 16 and 32
-// (bf16 at 64 and 128 takes flash_bwd_dkv_wgmma.cu).
 template <typename T, int D>
 struct DKV {
   static int run(const Args& a, cudaStream_t s) {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value && D > 32)
-      return static_cast<int>(cudaErrorInvalidValue);
-    else
+    if constexpr (kFmaRoute<T, D>)
       return launch_dkv<T, D>(a, s);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 };
 
 }  // namespace
 
 // q and dout: [B, T, Hq, D], k and v: [B, T, Hkv, D], dq: [B, T, Hq, D],
-// each given by its (b, t, h, d) element strides; lse and delta: contiguous
-// [B, Hq, T] f32.
+// each given by its (b, t, h, d) element strides, all chunked (d-stride 1,
+// 4-element aligned); lse and delta: contiguous [B, Hq, T] f32.  float32 at
+// head dims 16, 32, 64, 128 and bf16 at 16, 32.
 extern "C" int tj_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int B, int T_len,
@@ -695,12 +814,14 @@ extern "C" int tj_flash_bwd_dq(const void* q, const void* k, const void* v,
   a.sv = Strides{vb, vt, vh, vd};
   a.sg = Strides{gb, gt, gh, gd};
   a.sdq = Strides{dqb, dqt, dqh, dqd};
+  if (!tj::chunked(q, a.sq, dtype) || !tj::chunked(k, a.sk, dtype) ||
+      !tj::chunked(v, a.sv, dtype) || !tj::chunked(dout, a.sg, dtype) ||
+      !tj::chunked(dq, a.sdq, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<DQ>(dtype, D, a, static_cast<cudaStream_t>(stream));
 }
 
-// As tj_flash_bwd_dq; dk and dv: [B, T, Hkv, D] by stride.  q, k, v, dout,
-// dk and dv must be chunked (d-stride 1, 4-element aligned); float32 at head
-// dims 16, 32, 64, 128 and bf16 at 16, 32.
+// As tj_flash_bwd_dq; dk and dv: [B, T, Hkv, D] by stride, chunked too.
 extern "C" int tj_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv,

@@ -333,15 +333,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   using S = FwdShape<D>;
   constexpr size_t smem = fwd_smem_bytes<T, D>();
   static bool configured = false;
-  if (!configured) {
-    // Two or three CTAs of up to 112 KB an SM need the largest carve-out.
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributePreferredSharedMemoryCarveout,
-        cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   if (const int err =
-          tj::opt_in_smem(flash_fwd_kernel<T, D>, smem, &configured))
+          tj::opt_in_max_smem(flash_fwd_kernel<T, D>, smem, &configured))
     return err;
   const dim3 grid(B * H, (T_len + S::BQ - 1) / S::BQ);
   flash_fwd_kernel<T, D><<<grid, S::NT, smem, stream>>>(

@@ -1,7 +1,7 @@
-// Building blocks of the f32-FMA flash kernels (flash_fwd.cu and the dK/dV
-// kernel of flash_bwd.cu): cp.async copies of 4-element chunks into shared
-// memory, the XOR swizzle of those chunks, 4-element shared loads widened
-// to f32, and exp2.
+// Building blocks of the f32-FMA flash kernels (flash_fwd.cu, and the dQ
+// and dK/dV kernels of flash_bwd.cu): cp.async copies of 4-element chunks
+// into shared memory, the XOR swizzle of those chunks, 4-element shared
+// loads widened to f32, exp2, and the shared-memory opt-in.
 //
 // A tile of `rows` x D elements is stored row-major in chunks of 4
 // elements (16 bytes of f32, 8 of bf16).  Chunk c of row r sits at chunk
@@ -122,6 +122,19 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long st,
     cp_chunk(dst + chunk_at<D>(r, c, r & M), ok ? src + t * st + 4 * c : src,
              ok);
   }
+}
+
+// The shared-memory opt-in (common.cuh opt_in_smem) with the largest
+// shared carve-out: two or three CTAs of up to 113 KB an SM need it.
+template <typename Kernel>
+inline int opt_in_max_smem(Kernel kernel, size_t bytes, bool* configured) {
+  if (!*configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return opt_in_smem(kernel, bytes, configured);
 }
 
 // Whether a [B, T, H, D] tensor of `dtype` (kF32, kBF16) given by its

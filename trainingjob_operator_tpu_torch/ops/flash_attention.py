@@ -48,8 +48,6 @@ TC_DKV_TILE = (64, 64)
 #: Columns of a TMA box: 64 bf16 are the 128 bytes the 128-byte swizzle
 #: takes; a head dim of 128 loads as two boxes.
 TMA_BOX_D = 64
-#: Row tile of the f32-FMA dQ kernel (csrc/flash_bwd.cu tj_flash_bwd_dq).
-FMA_TILE = 64
 #: Tiles of the f32-FMA forward by head dim, (query rows per CTA, keys per
 #: K/V tile), and its warps a CTA: BQ, BK and NW of csrc/flash_fwd.cu
 #: FwdShape (the CPU tests derive them from the source's FwdCfg).
@@ -60,6 +58,11 @@ FMA_FWD_WARPS = {16: 2, 32: 4, 64: 4, 128: 4}
 #: DkvShape (derived from DkvCfg likewise).
 FMA_DKV_TILE = {16: (64, 32), 32: (128, 32), 64: (64, 64), 128: (64, 32)}
 FMA_DKV_WARPS = {16: 2, 32: 4, 64: 4, 128: 4}
+#: Tiles of the f32-FMA dQ by head dim, (query rows per CTA, keys per K/V
+#: tile), and its warps a CTA: BQ, BK and NW of csrc/flash_bwd.cu DqShape
+#: (derived from DqCfg likewise).
+FMA_DQ_TILE = {16: (64, 32), 32: (128, 32), 64: (64, 64), 128: (64, 32)}
+FMA_DQ_WARPS = {16: 2, 32: 4, 64: 4, 128: 4}
 
 #: Kernel launches since the last reset (chip_smoke.py reads them): the
 #: forward, dQ and dK/dV count every launch, whichever kernel ran; the
@@ -197,8 +200,8 @@ def tma_operand(t):
 
 
 def fma_ready(t) -> bool:
-    """Whether the f32-FMA forward and dK/dV can copy ``t`` [B, T, H, D]
-    into shared memory in 4-element chunks (cp.async) in place: d-stride
+    """Whether the f32-FMA kernels can copy ``t`` [B, T, H, D] into shared
+    memory in 4-element chunks (cp.async) in place: d-stride
     1, and the base and the t, h and b strides 4-element aligned."""
     return (t.stride(3) == 1 and t.data_ptr() % (4 * t.element_size()) == 0
             and all(s % 4 == 0 for s in t.stride()[:3]))
@@ -245,58 +248,52 @@ def _maps(tensors: dict, box_rows: dict) -> Tuple[dict, dict]:
     return copies, maps
 
 
-def _query_tile_plan(q, operands: dict, tile) -> dict:
+def _query_tile_plan(q, operands: dict, fma_tiles: dict, fma_warps: dict,
+                     tc_tile) -> dict:
     """The plan of a kernel with one CTA per (query tile, b, query head):
-    the kernel (``kernel_route``), the grid, the query tiles in issue order
-    and, for the tensor-core kernel, which ``operands`` are copied and their
-    tensor maps (q and dO boxes of ``tile[0]`` rows, k and v of
-    ``tile[1]``).  Under the "fma" route (the f32-FMA dQ kernel, which
-    reads its inputs by stride) one CTA per 64-row query tile in x."""
+    the kernel (``kernel_route``), the grid, with every (b, h) in x and the
+    query tile in y from the last (under a causal mask the heaviest) to the
+    first, the query tiles in that order, and which ``operands`` are copied
+    first.  The f32-FMA kernel's (query rows, keys a tile) and warps come
+    from ``fma_tiles`` and ``fma_warps`` by head dim; the tensor-core
+    kernel's tile is ``tc_tile``, and the plan adds its tensor maps (q and
+    dO boxes of ``tc_tile[0]`` rows, k and v of ``tc_tile[1]``)."""
     B, T, H, D = q.shape
     kernel = kernel_route(q.dtype, D)
+    tile = fma_tiles[D] if kernel == "fma" else tc_tile
+    n = _tiles(T, tile[0])
+    plan = {"kernel": kernel, "grid": (B * H, n),
+            "tile_order": [n - 1 - y for y in range(n)]}
     if kernel == "fma":
-        n = _tiles(T, FMA_TILE)
-        return {"kernel": kernel, "grid": (n, B * H),
-                "tile_order": list(range(n))}
+        return {**plan, "tile": tile, "warps": fma_warps[D],
+                "copies": _fma_copies(operands)}
     rows_q, rows_kv = tile
-    n = _tiles(T, rows_q)
     copies, maps = _maps(operands, {name: rows_kv if name in ("k", "v")
                                     else rows_q for name in operands})
-    # Every (b, h) in x, the query tile in y from the last (under a causal
-    # mask the heaviest) to the first.
-    return {"kernel": kernel, "grid": (B * H, n),
-            "tile_order": [n - 1 - y for y in range(n)],
-            "copies": copies, "maps": maps}
+    return {**plan, "copies": copies, "maps": maps}
 
 
 def _fma_copies(operands: dict) -> dict:
-    """Which inputs of the f32-FMA forward or dK/dV are copied first (not
+    """Which inputs of an f32-FMA kernel are copied first (not
     ``fma_ready``)."""
     return {name: not fma_ready(t) for name, t in operands.items()}
 
 
 def fwd_plan(q, k, v) -> dict:
     """How the forward launches on [B, T, H, D] inputs.  Plain Python: the
-    wrapper launches by it and the CPU tests check it.  The tensor-core
-    kernel as ``_query_tile_plan`` says; the f32-FMA kernel with one CTA of
-    ``FMA_FWD_WARPS`` warps per (``FMA_FWD_TILE`` query tile, b, h), every
-    (b, h) in x and the query tile in y from the last (under a causal mask
-    the heaviest) to the first, and which inputs are copied first."""
-    B, T, H, D = q.shape
-    if kernel_route(q.dtype, D) == "fma":
-        rows_q, rows_kv = FMA_FWD_TILE[D]
-        n = _tiles(T, rows_q)
-        return {"kernel": "fma", "grid": (B * H, n),
-                "tile_order": [n - 1 - y for y in range(n)],
-                "tile": (rows_q, rows_kv), "warps": FMA_FWD_WARPS[D],
-                "copies": _fma_copies({"q": q, "k": k, "v": v})}
-    return _query_tile_plan(q, {"q": q, "k": k, "v": v}, TC_FWD_TILE)
+    wrapper launches by it and the CPU tests check it.  As
+    ``_query_tile_plan`` says: the f32-FMA kernel with one CTA of
+    ``FMA_FWD_WARPS`` warps per ``FMA_FWD_TILE`` query tile, the
+    tensor-core kernel per ``TC_FWD_TILE``."""
+    return _query_tile_plan(q, {"q": q, "k": k, "v": v}, FMA_FWD_TILE,
+                            FMA_FWD_WARPS, TC_FWD_TILE)
 
 
 def dq_plan(q, k, v, g) -> dict:
-    """As ``fwd_plan`` for dQ (``g`` is dO)."""
+    """As ``fwd_plan`` for dQ (``g`` is dO): ``FMA_DQ_TILE`` and
+    ``FMA_DQ_WARPS``, or ``TC_DQ_TILE``."""
     return _query_tile_plan(q, {"q": q, "k": k, "v": v, "g": g},
-                            TC_DQ_TILE)
+                            FMA_DQ_TILE, FMA_DQ_WARPS, TC_DQ_TILE)
 
 
 def dkv_plan(q, k, v, g) -> dict:
@@ -437,10 +434,11 @@ def _check_bwd_args(q, k, v, g, lse, delta) -> None:
 def flash_bwd_dq_kernel(q, k, v, g, lse, delta, *, causal: bool,
                         scale: float, window: int) -> torch.Tensor:
     """Launch the dQ kernel ``dq_plan`` names on CUDA tensors: dq [B, T,
-    H, D] in q's dtype.  ``tj_flash_bwd_dq`` (``csrc/flash_bwd.cu``) reads
-    q, k, v and dO by stride, ``tj_flash_bwd_dq_wgmma``
-    (``csrc/flash_bwd_dq_wgmma.cu``) through tensor maps, after an
-    explicit contiguous copy of any of them that is not ``tma_ready``."""
+    H, D] in q's dtype.  ``tj_flash_bwd_dq`` (``csrc/flash_bwd.cu``) copies
+    4-element chunks of q, k, v and dO by their strides,
+    ``tj_flash_bwd_dq_wgmma`` (``csrc/flash_bwd_dq_wgmma.cu``) reads them
+    through tensor maps, each after an explicit contiguous copy of any
+    input it cannot read in place (``fma_operand``, ``tma_operand``)."""
     global bwd_dq_launches, wgmma_dq_launches
     _check_bwd_args(q, k, v, g, lse, delta)
     B, T, H, D = q.shape
@@ -460,6 +458,7 @@ def flash_bwd_dq_kernel(q, k, v, g, lse, delta, *, causal: bool,
         _build.check(code, "flash_attention_bwd_dq_wgmma")
         wgmma_dq_launches += 1
     else:
+        q, k, v, g = (fma_operand(x) for x in (q, k, v, g))
         code = lib.tj_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
