@@ -25,7 +25,10 @@ script exits non-zero):
    of input copies twice the size of the card's L2, so that every call
    reads its input from device memory.  Two cases are unmasked (``causal=False``, B1 T4096 H32 D128,
    MHA and GQA 32/8): a ring block before the diagonal, timed against
-   SDPA with ``is_causal=False`` and bound with T^2 visible pairs.
+   SDPA with ``is_causal=False`` and bound with T^2 visible pairs.  The
+   decode attention runs at the serving cell's cache slice, full and at a
+   ragged half fill, and at ``generate``'s one row (``DECODE_CASES``,
+   ``DECODE_TOL``), timed over a rotation of layer slices.
 2a. train_124m_f32: the trainer's step at the 124M config in float32
    (``LLAMA_DTYPE=float32``: head dim 64, so attention takes the f32-FMA
    kernels), seq 1024, batch 8, remat "none", TF32 off for cuBLAS and
@@ -55,10 +58,12 @@ script exits non-zero):
    1) under each remat policy on the card equal the CPU's, as in phase 4.
 5. serve_7b: DecodeService on a seeded random-init Llama-2-7B (bf16, 16
    of its 32 layers: the depth cut that keeps the script inside half its
-   limit); zero stale-KV violations, every request finished, and RMSNorm
-   launched 33 times per decode step and per prefill chunk.
+   limit); zero stale-KV violations, every request finished, RMSNorm
+   launched 33 times per decode step and per prefill chunk and the decode
+   attention once per layer and decode step.
 6. generate_7b: a 512-token prompt and 32 greedy steps; the tensor-core
-   flash forward is launched once per layer by the prefill.
+   flash forward is launched once per layer by the prefill, the decode
+   attention once per layer and decode step.
 7. train_7b_width: the trainer's step (``llama_elastic.make_step_fn``) at
    Llama-2-7B widths, 8 of its 32 layers (f32 masters and AdamW state for
    all 32 need about 108 GB), bf16 compute, seq 4096, global batch 2 with
@@ -226,15 +231,15 @@ script exits non-zero):
    phase of 18-20 must launch none of the port's kernels.
 
 Each phase line carries ``elapsed_s``, the script's seconds so far.
-Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm, and
+Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm,
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
-dK/dV, with their launches on the paths driven (the 7B phases 5-9b and 13,
-the 124M trainer of phases 10-11 (10a and 10b too) and 14 and the Mixtral-width phases
-15-16a run the bf16 tensor-core kernels, the 124M float32 trainer of phase
-2a, the tiny fp32 phases 3-4a and 12 and the tiny MoE trainer of phase 17
-(head dim 16) the f32-FMA ones; a
-trainer process reports its launches when it returns) and,
-last, ``{"ok": true, "device": {...}}``.  Exits non-zero
+dK/dV, and the decode attention, with their launches on the paths driven
+(the 7B phases 5-9b and 13, the 124M trainer of phases 10-11 (10a and 10b
+too) and 14 and the Mixtral-width phases 15-16a run the bf16 tensor-core
+kernels, the 124M float32 trainer of phase 2a, the tiny fp32 phases 3-4a
+and 12 and the tiny MoE trainer of phase 17 (head dim 16) the f32-FMA
+ones; a trainer process reports its launches when it returns) and, last,
+``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when CUDA is unavailable or the package is not
 beside this script.
 """
@@ -383,6 +388,23 @@ def eager_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int) -> float:
+    """Host time per call, in us, of ``iters`` eager calls issued back to
+    back: the Python and launch cost, which does not wait for the device
+    while its queue holds the calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(bytes_moved: float, ops: float, dtype: str):
@@ -537,7 +559,7 @@ def rates(ops: float, ms: float, bound_ms: float) -> dict:
 def launched(torch, fn, key: str, kernel: str):
     """Run ``fn`` once from zeroed counters; raise unless it launched the
     kernel ``key`` once, on the tensor-core route where ``kernel`` is
-    "wgmma"."""
+    "wgmma" (a kernel with one route passes any other name)."""
     from trainingjob_operator_tpu_torch import ops
 
     ops.reset_launch_counts()
@@ -775,6 +797,114 @@ def check_flash_bwd(torch, F, flash):
     return dq_cases, dkv_cases
 
 
+#: (rtol, atol) of the decode attention against its plain version.  Both
+#: compute in f32 from the same inputs (bf16 widens exactly) and differ in
+#: summation order and exp2's last bits, about 1e-6 of the output: f32
+#: within 1e-4 relative, and 1e-5 absolute where the output is near 0
+#: (its terms reach max|v|); a bf16 output may then round one bf16 step
+#: apart, at most 2^-7 of its magnitude.
+DECODE_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2 ** -7, 1e-5)}
+#: (B, S, Hkv, group, Dh, fill, dtype) of the decode attention's checks:
+#: the serving cell's slice (Mistral-7B: 32 slots of 2048, GQA 32/8) with
+#: every slot visible ("full": ts = S - 1) and at a ragged half fill
+#: ("half": ts drawn from 0 .. S - 1, mean about S / 2), and
+#: ``generate``'s one row at position 512 (an int t: 3 splits of the 513
+#: visible slots).
+DECODE_CASES = [(32, 2048, 8, 4, 128, "full", "bfloat16"),
+                (32, 2048, 8, 4, 128, "half", "bfloat16"),
+                (1, 2048, 8, 4, 128, 512, "bfloat16")]
+#: Layer slices the timed calls rotate through, so no call finds the
+#: previous one's cache in L2 (a decode step reads each layer's once).
+DECODE_LAYERS = 4
+
+
+def check_decode_attention(torch, F, da):
+    """The decode attention kernel against its plain version at
+    DECODE_CASES within DECODE_TOL, and timed over a rotation of
+    DECODE_LAYERS cache slices.  Bound: the visible positions' keys and
+    values, q and the output once each, against 4 flops a query head,
+    position and head-dim element (scores and P.V).  The yardstick is one
+    ``F.scaled_dot_product_attention`` call over the same slice (GQA, a
+    boolean mask of the visible slots), which the port never calls.
+    ``host_us`` and ``plain_host_us``: the host's time a call of the
+    kernel's wrapper and of the plain version (``host_us``)."""
+    cases = []
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for B, S, Hkv, group, D, fill, dname in DECODE_CASES:
+        dtype = getattr(torch, dname)
+        shape = (DECODE_LAYERS, B, S, Hkv, D)
+        ks = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        vs = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        q = torch.randn(B, 1, Hkv * group, D, generator=gen,
+                        device=dev).to(dtype)
+        if fill == "full":
+            t = torch.full((B,), S - 1, dtype=torch.long, device=dev)
+        elif fill == "half":
+            t = torch.randint(0, S, (B,), generator=gen, device=dev)
+        else:
+            t = fill
+        nvis = (t + 1).clamp(max=S).sum().item() if isinstance(
+            t, torch.Tensor) else B * min(t + 1, S)
+        got = launched(torch, lambda: da.decode_attention_kernel(
+            q, ks[0], vs[0], t, group), "decode_attention", "cuda")
+        want = da.attend_cache_reference(q, ks[0], vs[0], t, group)
+        torch.cuda.synchronize()
+        rtol, atol = DECODE_TOL[dname]
+        err = float((got.float() - want).abs().max())
+        tag = f"decode attention B={B} S={S} {Hkv}x{group} D={D} {fill}"
+        if (max_violation(got, want, rtol, atol) > 0
+                or not torch.isfinite(got).all()):
+            raise AssertionError(f"{tag}: max abs err {err} over tolerance")
+        turn = itertools.cycle(range(DECODE_LAYERS))
+
+        def rotated(fn):
+            def call():
+                i = next(turn)
+                return fn(ks[i], vs[i])
+            return call
+        slots = torch.arange(S, device=dev)
+        tt = t.view(B, 1, 1, 1) if isinstance(t, torch.Tensor) else t
+        mask = slots.view(1, 1, 1, S) <= tt
+        qt = q.transpose(1, 2)
+
+        def library(k, v):
+            return F.scaled_dot_product_attention(
+                qt, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                enable_gqa=group > 1)
+        esize = q.element_size()
+        bytes_moved = (2 * nvis * Hkv * D + 2 * B * Hkv * group * D) * esize
+        ops = 4 * nvis * Hkv * group * D
+        t_bound, by = bound(bytes_moved, ops, dname)
+        iters = 20 * DECODE_LAYERS
+        ms = time_ms(rotated(lambda k, v: da.decode_attention_kernel(
+            q, k, v, t, group)), iters)
+        cases.append({
+            "B": B, "S": S, "Hkv": Hkv, "group": group, "D": D,
+            "fill": fill, "dtype": dname, "visible": int(nvis),
+            "plan": da.decode_attention_plan(B, Hkv, S, D, group, dtype,
+                                             da.visible_slots(t, S)),
+            "max_abs_err": err, "rtol": rtol, "atol": atol,
+            "ms": ms, **rates(ops, ms, t_bound),
+            "eager_ms": eager_ms(rotated(
+                lambda k, v: da.decode_attention_kernel(q, k, v, t, group)),
+                iters),
+            "plain_ms": time_ms(rotated(
+                lambda k, v: da.attend_cache_reference(
+                    q, k, v, t, group).to(dtype)), DECODE_LAYERS),
+            "host_us": host_us(rotated(
+                lambda k, v: da.decode_attention_kernel(q, k, v, t, group)),
+                iters),
+            "plain_host_us": host_us(rotated(
+                lambda k, v: da.attend_cache_reference(
+                    q, k, v, t, group).to(dtype)), DECODE_LAYERS),
+            "library_ms": time_ms(rotated(library), iters),
+            "bound_ms": t_bound, "bound_by": by})
+        del ks, vs, q, got, want, mask
+        torch.cuda.empty_cache()
+    return cases
+
+
 def train_launches(L: int, remat: str, micro_steps: int,
                    tensor_cores: bool = False):
     """Kernel launches of ``micro_steps`` microbatch steps of an L-layer
@@ -784,7 +914,8 @@ def train_launches(L: int, remat: str, micro_steps: int,
     RMSNorms, plus the final RMSNorm.  Every remat policy re-runs a
     layer's two RMSNorms in the backward; "full" and "dots" re-run its
     flash forward too, while "attn" saves the forward's (out, lse)
-    (tests/test_torch_remat.py)."""
+    (tests/test_torch_remat.py).  Training never reaches the decode
+    attention."""
     fwd = micro_steps * (2 if remat in ("full", "dots") else 1) * L
     return {"rmsnorm_fwd":
                 micro_steps * ((2 if remat == "none" else 4) * L + 1),
@@ -795,7 +926,8 @@ def train_launches(L: int, remat: str, micro_steps: int,
             "flash_attention_bwd_dq_wgmma":
                 micro_steps * L if tensor_cores else 0,
             "flash_attention_bwd_dkv_wgmma":
-                micro_steps * L if tensor_cores else 0}
+                micro_steps * L if tensor_cores else 0,
+            "decode_attention": 0}
 
 
 def tiny_train_equivalence(torch, llama, llama_elastic, train):
@@ -2396,6 +2528,10 @@ def serve_7b(torch, serve, params, cfg, family="llama"):
                              f"rmsnorm launches, expected {expected}")
     if counts["flash_attention_fwd"] != 0:
         raise AssertionError(f"{family} serve launched the flash kernel")
+    if counts["decode_attention"] != cfg.n_layers * svc.decode_calls:
+        raise AssertionError(f"{family} serve: {counts['decode_attention']} "
+                             f"decode attention launches, expected "
+                             f"{cfg.n_layers * svc.decode_calls}")
     # A decode tick with every slot at a position inside the cache.
     tokens = torch.arange(1, len(svc.slots) + 1, device=dev)
     ts = torch.arange(len(svc.slots), device=dev) * 100 + 100
@@ -2489,6 +2625,9 @@ def generate_7b(torch, decode, params, cfg):
     if counts["rmsnorm_fwd"] != (2 * cfg.n_layers + 1) * steps:
         raise AssertionError(f"generate: {counts['rmsnorm_fwd']} rmsnorm "
                              f"launches")
+    if counts["decode_attention"] != cfg.n_layers * (steps - 1):
+        raise AssertionError(f"generate: {counts['decode_attention']} "
+                             f"decode attention launches")
     if tuple(tokens.shape) != (1, steps) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"generate: bad tokens {tokens.tolist()}")
@@ -3459,6 +3598,7 @@ def main() -> int:
         resnet,
     )
     from trainingjob_operator_tpu_torch.ops import _build, fused
+    from trainingjob_operator_tpu_torch.ops import decode_attention as da
     from trainingjob_operator_tpu_torch.workloads import (
         bert_pretrain,
         llama_elastic,
@@ -3494,10 +3634,12 @@ def main() -> int:
     rms_cases = check_rmsnorm(torch, F, fused)
     flash_cases = check_flash(torch, F, flash)
     dq_cases, dkv_cases = check_flash_bwd(torch, F, flash)
+    decode_cases = check_decode_attention(torch, F, da)
     emit({"phase": "kernel_checks", "device": name, "nvidia_smi": smi,
           "rmsnorm_fwd": rms_cases, "flash_attention_fwd": flash_cases,
           "flash_attention_bwd_dq": dq_cases,
-          "flash_attention_bwd_dkv": dkv_cases})
+          "flash_attention_bwd_dkv": dkv_cases,
+          "decode_attention": decode_cases})
     trained_f32 = train_124m_f32(torch, llama, llama_elastic, train, flash)
     emit({"phase": "train_124m_f32", "device": name, "nvidia_smi": smi,
           **trained_f32})
@@ -3687,6 +3829,10 @@ def main() -> int:
         summary("flash_attention_bwd_dkv_fma", "cuda", src + "flash_bwd.cu",
                 tpu + "flash_attention.py:219", of(dkv_cases, "fma"),
                 dkv_cases[FMA_FLASH_CASE], fma["flash_attention_bwd_dkv"]),
+        summary("decode_attention", "cuda", src + "decode_attention.cu",
+                "none (plain XLA: trainingjob_operator_tpu/models/"
+                "decode.py:86)", decode_cases, decode_cases[0],
+                launches["decode_attention"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -15,6 +15,7 @@ import torch
 
 from trainingjob_operator_tpu_torch import ops
 from trainingjob_operator_tpu_torch.models import bert, decode, llama, resnet
+from trainingjob_operator_tpu_torch.ops import decode_attention as da
 from trainingjob_operator_tpu_torch.ops import fused
 from trainingjob_operator_tpu_torch.workloads import (
     bert_pretrain,
@@ -356,6 +357,43 @@ def test_flash_autograd_goes_through_the_kernels(dev):
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("window", [0, 2100])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(dev, dtype, D, group, window,
+                                               per_row):
+    # A cache of S = 2300 slots, which no split size divides; full mode, or
+    # a ring of window 2100 < S at positions past S, so that the visible
+    # run wraps.  Ragged rows hold position 0, S - 1 and middle ones.  The
+    # splits cover S (ragged rows) or the batch's visible slots (an int t),
+    # in more than one chunk at every head dim and dtype.  Held to
+    # chip_smoke.DECODE_TOL: both compute in f32 from the same inputs and
+    # differ in summation order and exp2's last bits; a bf16 output may
+    # round one step apart.
+    B, S, Hkv = 4, 2300, 2
+    g = torch.Generator(device=dev).manual_seed(10)
+    q = torch.randn(B, 1, Hkv * group, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype)
+    rows = [0, S - 1, 1370, 3000] if window else [0, S - 1, 1370, 2211]
+    t = (torch.tensor(rows, device=dev) if per_row
+         else (3000 if window else 2211))
+    reach = da.visible_slots(t, S, window)
+    plan = da.decode_attention_plan(B, Hkv, S, D, group, dtype, reach)
+    assert (reach or S) % plan["chunk"] and plan["splits"] > 1
+    ops.reset_launch_counts()
+    got = da.decode_attention(q, k, v, t, group, window)
+    assert ops.launch_counts()["decode_attention"] == 1
+    want = da.attend_cache_reference(q, k, v, t, group, window)
+    assert got.dtype == dtype and got.shape == want.shape
+    rtol, atol = smoke.DECODE_TOL[str(dtype).split(".")[-1]]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+    # The splits merge in a fixed order: a second run is bit for bit.
+    assert torch.equal(got, da.decode_attention(q, k, v, t, group, window))
+
+
 def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
     base = llama.LlamaConfig.tiny()
     cfg = llama.LlamaConfig(**{**base.__dict__, "dtype": "float32"})
@@ -378,7 +416,8 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
                       "flash_attention_bwd_dkv": 3 * 2 * L,
                       "flash_attention_fwd_wgmma": 0,
                       "flash_attention_bwd_dq_wgmma": 0,
-                      "flash_attention_bwd_dkv_wgmma": 0}
+                      "flash_attention_bwd_dkv_wgmma": 0,
+                      "decode_attention": 0}
     torch.testing.assert_close(losses["cuda"], losses["cpu"], rtol=1e-4,
                                atol=0)
 
@@ -400,6 +439,10 @@ def test_tiny_serve_equals_generate_through_the_kernels(dev):
     assert req.tokens == want[0].tolist()
     counts = ops.launch_counts()
     assert counts["rmsnorm_fwd"] > 0 and counts["flash_attention_fwd"] == 2
+    # Every decode step of the service and of generate, in every layer.
+    assert counts["decode_attention"] > 0
+    assert counts["decode_attention"] == cfg.n_layers * (
+        svc.decode_calls + 10 - 1)
 
 
 def test_a_prefetched_run_is_bit_identical_to_an_unprefetched_one(dev):

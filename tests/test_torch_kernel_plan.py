@@ -1,9 +1,11 @@
-"""The flash kernels' launch plans, on the CPU (no card, no JAX).
+"""The kernels' launch plans, on the CPU (no card, no JAX).
 
 Which kernel a call takes, its grid and tile order, when an input is copied
 and the tensor maps the tensor-core kernels are built from are decided in
 plain Python (``ops/flash_attention.py`` ``fwd_plan``, ``dq_plan`` and
-``dkv_plan``; ``ops/fused.py`` ``rmsnorm_plan``), so they are checked here;
+``dkv_plan``; ``ops/fused.py`` ``rmsnorm_plan``;
+``ops/decode_attention.py`` ``decode_attention_plan``), so they are
+checked here;
 the kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
@@ -17,6 +19,7 @@ import torch
 
 from trainingjob_operator_tpu_torch import ops
 from trainingjob_operator_tpu_torch.ops import _build, fused
+from trainingjob_operator_tpu_torch.ops import decode_attention as da
 
 flash = importlib.import_module(
     "trainingjob_operator_tpu_torch.ops.flash_attention")
@@ -595,3 +598,144 @@ def test_rmsnorm_timing_rotates_through_twice_the_l2(rows, esize, copies):
     assert smoke.copies_for(nbytes, l2_bytes) == copies
     assert copies * nbytes >= 2 * l2_bytes
     assert (copies - 1) * nbytes < 2 * l2_bytes or copies == 2
+
+
+def test_decode_plan_covers_the_card_at_the_serving_shapes():
+    # Mistral-7B's slice in the serving cell: 32 slots of 2048, GQA 32/8,
+    # head dim 128, bf16.  8 splits of 256 slots: 2,048 CTAs, the 132 SMs
+    # covered many times over, and still more than twice when half the
+    # CTAs find their chunk past the row's position.
+    plan = da.decode_attention_plan(32, 8, 2048, 128, 4, torch.bfloat16)
+    assert plan["tile"] == 32 and plan["vec"] == 8
+    assert (plan["chunk"], plan["splits"]) == (256, 8)
+    assert plan["grid"] == (256, 8) and plan["group_slots"] == 4
+    assert plan["grid"][0] * plan["grid"][1] // 2 >= 2 * da.SMS
+    # generate's one row: no CTA takes fewer than MIN_TILES tiles, so the
+    # full cache splits 8 ways, not 64 of one tile each.
+    one = da.decode_attention_plan(1, 8, 2048, 128, 4, torch.bfloat16)
+    assert (one["chunk"], one["splits"]) == (256, 8)
+
+
+@pytest.mark.parametrize("t,window,reach,splits", [
+    # One row, bf16, head dim 128: chunks of 8 tiles (256 slots) over the
+    # slots the batch sees at an int t, and one split (no merging launch)
+    # where they fit in one chunk.
+    (100, 0, 101, 1), (512, 0, 513, 3), (1500, 0, 1501, 6),
+    (2047, 0, 2048, 8), (5000, 0, 2048, 8), (5000, 300, 300, 2),
+    (0, 0, 1, 1), (-3, 0, 1, 1)])
+def test_decode_plan_covers_only_what_an_int_t_sees(t, window, reach,
+                                                    splits):
+    assert da.visible_slots(t, 2048, window) == reach
+    plan = da.decode_attention_plan(1, 8, 2048, 128, 4, torch.bfloat16,
+                                    reach)
+    assert plan["chunk"] == 8 * plan["tile"] == 256
+    assert plan["splits"] == splits and plan["grid"] == (8, splits)
+
+
+def test_decode_plan_covers_every_slot_for_per_row_positions():
+    # A tensor of positions gives reach 0: the splits cover all S, as
+    # without a reach.
+    ts = torch.tensor([3, 9])
+    assert da.visible_slots(ts, 2048) == 0
+    assert da.decode_attention_plan(2, 8, 2048, 128, 4, torch.bfloat16,
+                                    0) == da.decode_attention_plan(
+        2, 8, 2048, 128, 4, torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,Hkv,S", [(32, 8, 2048), (32, 8, 300),
+                                     (4, 2, 300), (1, 8, 2048), (2, 2, 10),
+                                     (3, 1, 1), (64, 8, 4097)])
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 16),
+                                     (torch.float32, 128),
+                                     (torch.float32, 32)])
+def test_decode_plan_splits_cover_every_slot_once(B, Hkv, S, dtype, D):
+    # Splits of whole tiles cover S, ragged or not, and the last one holds
+    # at least one slot.
+    plan = da.decode_attention_plan(B, Hkv, S, D, 2, dtype)
+    assert plan["chunk"] % plan["tile"] == 0
+    assert (plan["splits"] - 1) * plan["chunk"] < S <= plan["splits"] * \
+        plan["chunk"]
+    assert plan["grid"] == (B * Hkv, plan["splits"])
+
+
+@pytest.mark.parametrize("dtype,D,tile", [
+    # 4 rows a thread, 4 warps, 32 / (D / vector) positions a warp row.
+    (torch.bfloat16, 128, 32), (torch.bfloat16, 64, 64),
+    (torch.bfloat16, 32, 128), (torch.bfloat16, 16, 256),
+    (torch.float32, 128, 16), (torch.float32, 64, 32),
+    (torch.float32, 32, 64), (torch.float32, 16, 128)])
+def test_decode_plan_tiles_by_head_dim(dtype, D, tile):
+    assert da.decode_attention_plan(1, 1, 8, D, 1, dtype)["tile"] == tile
+
+
+@pytest.mark.parametrize("group,slots", [(1, 1), (2, 2), (3, 4), (4, 4),
+                                         (5, 8), (8, 8)])
+def test_decode_plan_rounds_the_group_up_to_an_instance(group, slots):
+    plan = da.decode_attention_plan(2, 2, 64, 64, group, torch.bfloat16)
+    assert plan["group_slots"] == slots
+
+
+@pytest.mark.parametrize("D,group,dtype,err", [
+    (24, 4, torch.bfloat16, ValueError), (256, 4, torch.bfloat16, ValueError),
+    (128, 0, torch.bfloat16, ValueError), (128, 9, torch.float32, ValueError),
+    (128, 4, torch.float16, TypeError)])
+def test_decode_plan_refuses_what_the_kernel_does_not_take(D, group, dtype,
+                                                           err):
+    with pytest.raises(err):
+        da.decode_attention_plan(32, 8, 2048, D, group, dtype)
+
+
+def test_decode_plan_constants_are_those_of_the_source():
+    src = (_build.SRC_DIR / "decode_attention.cu").read_text()
+    for name, value in (("kWarps", da.DA_WARPS), ("kRows", da.DA_ROWS),
+                        ("kStages", da.DA_STAGES)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_decode_attention_launches_one_entry_on_the_cache_in_place(
+        lib, per_row):
+    B, S, Hkv, group, D = 2, 300, 2, 4, 128
+    q = torch.zeros(B, 1, Hkv * group, D, dtype=torch.bfloat16)
+    cache = torch.zeros(3, B, S, Hkv, D, dtype=torch.bfloat16)
+    k, v = cache[1], cache[2]
+    t = torch.tensor([5, 299]) if per_row else 17
+    out = da.decode_attention_kernel(q, k, v, t, group, window=0)
+    assert lib.calls == ["tj_decode_attention"]
+    (args,) = lib.args
+    plan = da.decode_attention_plan(B, Hkv, S, D, group, torch.bfloat16,
+                                    0 if per_row else 18)
+    # The cache slices are read where they lie; the positions stay on the
+    # device (a pointer) or pass as the one int.  Ragged rows split the
+    # whole cache and merge through the workspace; at t 17 the batch sees
+    # 18 slots, one split that writes the output itself.
+    assert args[1:3] == (k.data_ptr(), v.data_ptr())
+    assert args[3:5] == ((t.data_ptr(), 0) if per_row else (None, 17))
+    assert plan["splits"] == (2 if per_row else 1)
+    assert args[5] == out.data_ptr()
+    assert (args[6] is not None) == (args[7] is not None) == per_row
+    assert args[8:18] == (B, S, Hkv, D, group, 4, 0, _build.dtype_code(q),
+                          plan["chunk"], plan["splits"])
+    assert args[18] == pytest.approx(D ** -0.5)
+    assert args[19:27] == (Hkv * group * D, D, *k.stride()[:3],
+                           *v.stride()[:3])
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert ops.launch_counts()["decode_attention"] == 1
+
+
+def test_a_failed_decode_attention_launch_raises_and_counts_nothing(lib):
+    lib.code = 700
+    q = torch.zeros(1, 1, 4, 64)
+    k = v = torch.zeros(1, 40, 1, 64)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        da.decode_attention_kernel(q, k, v, 3, 4)
+    assert len(lib.calls) == 1
+    assert ops.launch_counts()["decode_attention"] == 0
+
+
+def test_decode_attention_counter_is_reported_and_reset():
+    da.launches = 5
+    assert ops.launch_counts()["decode_attention"] == 5
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["decode_attention"] == 0

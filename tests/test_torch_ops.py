@@ -1,5 +1,5 @@
-"""PyTorch port ops against the JAX package: RMSNorm and flash attention,
-forward and backward.
+"""PyTorch port ops against the JAX package: RMSNorm, flash attention,
+forward and backward, and the decode attention over the KV cache.
 
 The same numpy inputs go through the JAX function -- its Pallas kernel in
 interpret mode, and its XLA reference (or that reference's vjp) -- and
@@ -21,8 +21,12 @@ apply_jax_platform_override()
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from trainingjob_operator_tpu.models import decode as jdecode  # noqa: E402
 from trainingjob_operator_tpu.ops import fused as jfused  # noqa: E402
 from trainingjob_operator_tpu_torch import ops  # noqa: E402
+from trainingjob_operator_tpu_torch.ops import (  # noqa: E402
+    decode_attention as tda,
+)
 from trainingjob_operator_tpu_torch.ops import fused as tfused  # noqa: E402
 
 # ``ops.flash_attention`` is the function (both packages re-export it over
@@ -190,6 +194,84 @@ class TestFlashAttention:
             q.requires_grad_(True)
             with pytest.raises(NotImplementedError):
                 tfa.check_kernel_args(q, k, v)
+
+
+def _decode_inputs(B, S, Hkv, group, Dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, 1, Hkv * group, Dh), np.float32),
+            rng.standard_normal((B, S, Hkv, Dh), np.float32),
+            rng.standard_normal((B, S, Hkv, Dh), np.float32))
+
+
+class TestDecodeAttention:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("window,rows", [(0, [0, 19, 7]),
+                                             (8, [0, 19, 44])])
+    @pytest.mark.parametrize("per_row", [False, True])
+    def test_matches_jax(self, dtype, window, rows, per_row):
+        # The plain version (what a CPU tensor takes) against the JAX
+        # package's ``_attend_cache``: full mode, and a ring of 8 of 20
+        # slots at positions past it; one position or one a row.
+        q, k, v = _decode_inputs(3, 20, 2, 4, 16)
+        (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+        if per_row:
+            jt = jnp.asarray(rows).reshape(3, 1, 1, 1)
+            tt = torch.tensor(rows)
+        else:
+            jt = tt = rows[-1]
+        want = jdecode._attend_cache(jq, jk, jv, jt, 4, window)
+        got = tda.decode_attention(tq, tk, tv, tt, 4, window)
+        assert got.dtype == tq.dtype and got.shape == tq.shape
+        np.testing.assert_allclose(
+            _np(tda.attend_cache_reference(tq, tk, tv, tt, 4, window)),
+            _np(want), rtol=TOL["float32"][0], atol=TOL["float32"][1])
+        rtol, atol = TOL[dtype]
+        np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+
+    def test_cpu_tensor_takes_plain_path(self):
+        q, k, v = (torch.from_numpy(a) for a in _decode_inputs(2, 10, 2, 2,
+                                                                16))
+        ops.reset_launch_counts()
+        tda.decode_attention(q, k, v, torch.tensor([3, 9]), 2)
+        tda.decode_attention(q, k, v, 4, 2, window=4)
+        assert ops.launch_counts()["decode_attention"] == 0
+
+    @pytest.mark.parametrize("case", ["head_dim", "group", "dtype",
+                                      "dtype_mix", "q_shape", "ts_dtype",
+                                      "ts_shape", "strides", "window",
+                                      "grad"])
+    def test_kernel_refuses_what_it_does_not_take(self, case):
+        q, k, v = (torch.from_numpy(a) for a in _decode_inputs(2, 10, 2, 2,
+                                                                16))
+        t, group, window = torch.tensor([3, 9]), 2, 0
+        err = ValueError
+        if case == "head_dim":
+            q, k, v = (torch.from_numpy(a) for a in _decode_inputs(
+                2, 10, 2, 2, 24))
+        elif case == "group":
+            q, k, v = (torch.from_numpy(a) for a in _decode_inputs(
+                2, 10, 1, 9, 16))
+            group = 9
+        elif case == "dtype":
+            q, k, v, err = q.half(), k.half(), v.half(), TypeError
+        elif case == "dtype_mix":
+            k, err = k.bfloat16(), TypeError
+        elif case == "q_shape":
+            q = q[:, :, :3]
+        elif case == "ts_dtype":
+            t = t.int()
+        elif case == "ts_shape":
+            t = t.view(2, 1, 1, 1)
+        elif case == "strides":
+            k = torch.from_numpy(_decode_inputs(2, 10, 2, 2, 32)[1])[
+                ..., ::2]
+        elif case == "window":
+            window = -1
+        else:
+            q.requires_grad_(True)
+            err = NotImplementedError
+        with pytest.raises(err):
+            tda.check_kernel_args(q, k, v, t, group, window)
 
 
 class TestRmsnormGrad:

@@ -333,3 +333,4 @@ def test_train_launches_counts_every_kernel(remat, L, micro, tensor_cores):
         assert want[f"{key}_wgmma"] == (n if tensor_cores else 0)
     assert want["rmsnorm_fwd"] == micro * (
         (2 if remat == "none" else 4) * L + 1)
+    assert want["decode_attention"] == 0

@@ -15,8 +15,12 @@ Two differences from the JAX functions, both deliberate:
   cache as donated (it rebinds it to each call's result), so in place
   saves a second copy of the plane's largest tensor.
 
-The decode attentions (``_attend_cache``, ``_attend_cache_block``) are
-plain PyTorch, as they are plain XLA in the JAX package; RMSNorm in every
+The decode step's attention over the cache (``decode_step``,
+``serve_step``) is ``ops.decode_attention``: on the card the split-K CUDA
+kernel ``csrc/decode_attention.cu``, which reads the cache in place in its
+stored dtype and only up to each row's position; on the CPU its plain
+version (the JAX package computes it in plain XLA).  The chunked prefill's
+attention (``_attend_cache_block``) is plain PyTorch.  RMSNorm in every
 layer, and the flash attention of the prefill forward, are the CUDA
 kernels on the card.
 
@@ -39,6 +43,9 @@ from trainingjob_operator_tpu_torch.models.quant import (
     dequantize_rows,
     qmatmul,
     quantize_weights,
+)
+from trainingjob_operator_tpu_torch.ops.decode_attention import (
+    decode_attention,
 )
 
 
@@ -82,31 +89,6 @@ def init_cache(config: llama.LlamaConfig, batch: int, max_len: int,
              c.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
-
-
-def _attend_cache(q, keys, values, t, group: int, window: int = 0):
-    """q: [B, 1, Hq, Dh] vs cache [B, S, Hkv, Dh] -> [B, 1, Hq, Dh] f32.
-
-    Full mode: slot == position, slots <= t visible.  Ring mode: slot s
-    holds position p = t - ((t - s) mod S), visible iff p >= 0 and
-    p > t - window.  ``t`` is an int (whole batch at one position) or a
-    [B, 1, 1, 1] tensor of per-row positions.  f32 scores, -inf mask,
-    f32 softmax."""
-    B, S, Hkv, Dh = keys.shape
-    qh = q.reshape(B, Hkv, group, Dh).float()
-    kh = keys.transpose(1, 2).float()                       # [B,Hkv,S,Dh]
-    vh = values.transpose(1, 2).float()
-    scores = torch.einsum("bhgd,bhsd->bhgs", qh, kh) * (Dh ** -0.5)
-    slots = torch.arange(S, device=keys.device)[None, None, None, :]
-    if window:
-        pos = t - torch.remainder(t - slots, S)
-        mask = (pos >= 0) & (pos > t - window)
-    else:
-        mask = slots <= t
-    scores = torch.where(mask, scores, float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgs,bhsd->bhgd", probs, vh)
-    return out.reshape(B, 1, Hkv * group, Dh)
 
 
 def prefill(params, tokens: torch.Tensor, config: llama.LlamaConfig,
@@ -177,8 +159,8 @@ def decode_step(params, cache, token: torch.Tensor, t: int,
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
-        o = _attend_cache(q, k_cache, v_cache, t, group,
-                          window=c.sliding_window).to(compute)
+        o = decode_attention(q, k_cache, v_cache, t, group,
+                             window=c.sliding_window)
         h = _layer_tail(h, layer, o, compute, c, mlp)
     h = llama._rmsnorm(h, params["final_norm"], c.norm_eps)
     logits = qmatmul(h[:, 0, :], params["lm_head"], compute)
@@ -208,7 +190,6 @@ def serve_step(params, cache, token: torch.Tensor, ts: torch.Tensor,
     rows = torch.arange(B, device=ts.device)
     h = dequantize_rows(params["tok_embed"], token, compute)[:, None, :]
     rope = llama._rope_tables(ts[:, None], c.head_dim, c.rope_theta, compute)
-    tb = ts.view(B, 1, 1, 1)
     for i, layer in enumerate(llama.unstack_layers(params["layers"],
                                                    c.n_layers)):
         x = llama._rmsnorm(h, layer["attn_norm"], c.norm_eps)
@@ -216,8 +197,8 @@ def serve_step(params, cache, token: torch.Tensor, ts: torch.Tensor,
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
-        o = _attend_cache(q, k_cache, v_cache, tb, group,
-                          window=c.sliding_window).to(compute)
+        o = decode_attention(q, k_cache, v_cache, ts, group,
+                             window=c.sliding_window)
         h = _layer_tail(h, layer, o, compute, c, mlp)
     h = llama._rmsnorm(h, params["final_norm"], c.norm_eps)
     logits = qmatmul(h[:, 0, :], params["lm_head"], compute)

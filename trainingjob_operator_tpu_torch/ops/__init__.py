@@ -9,6 +9,7 @@ with the JAX package.  Counterpart of the JAX package's ``ops/__init__.py``
 
 from typing import Dict
 
+from trainingjob_operator_tpu_torch.ops import decode_attention as _decode
 from trainingjob_operator_tpu_torch.ops import flash_attention as _flash
 from trainingjob_operator_tpu_torch.ops import fused as _fused
 from trainingjob_operator_tpu_torch.ops.flash_attention import (  # noqa: F401
@@ -21,14 +22,16 @@ from trainingjob_operator_tpu_torch.ops.fused import rmsnorm  # noqa: F401
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``.  The flash
     forward, dQ and dK/dV count every launch; their ``_wgmma`` keys count
-    the tensor-core kernels' share of them."""
+    the tensor-core kernels' share of them.  "decode_attention" counts the
+    decode attention over the KV cache."""
     return {"rmsnorm_fwd": _fused.launches,
             "flash_attention_fwd": _flash.launches,
             "flash_attention_bwd_dq": _flash.bwd_dq_launches,
             "flash_attention_bwd_dkv": _flash.bwd_dkv_launches,
             "flash_attention_fwd_wgmma": _flash.wgmma_fwd_launches,
             "flash_attention_bwd_dq_wgmma": _flash.wgmma_dq_launches,
-            "flash_attention_bwd_dkv_wgmma": _flash.wgmma_dkv_launches}
+            "flash_attention_bwd_dkv_wgmma": _flash.wgmma_dkv_launches,
+            "decode_attention": _decode.launches}
 
 
 def reset_launch_counts() -> None:
@@ -39,3 +42,4 @@ def reset_launch_counts() -> None:
     _flash.wgmma_fwd_launches = 0
     _flash.wgmma_dq_launches = 0
     _flash.wgmma_dkv_launches = 0
+    _decode.launches = 0

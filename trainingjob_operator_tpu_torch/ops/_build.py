@@ -77,6 +77,11 @@ SIGNATURES = {
     # then the stream
     "tj_flash_bwd_dkv_wgmma": [_P] * 8 + [_I] * 7 + [_F] + [_G] * 4
     + [_L] * 8 + [_P],
+    # q, k, v, ts (or null), t, out, part_acc, part_ml, B, S, Hkv, D, group,
+    # group_slots, window, dtype, chunk, splits, scale, the (b, h) strides
+    # of q, the (b, s, h) strides of k and v, then the stream
+    "tj_decode_attention": [_P] * 4 + [_L] + [_P] * 3 + [_I] * 10 + [_F]
+    + [_L] * 8 + [_P],
 }
 
 #: dtype codes the C entry points take (csrc/common.cuh kF32, kBF16).
