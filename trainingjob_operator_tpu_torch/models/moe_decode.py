@@ -17,18 +17,28 @@ GB a matrix a layer for a 16-token chunk at Mixtral width).
 chosen expert's three products on its weights in place, then adds the
 gated outputs in JAX's order over k: the same row products, batched
 otherwise.
+
+While a profiler records, each ``_routed_mlp_token`` call runs under two
+ranges, ``moe.route`` (the router up to the host read of the per-expert
+counts) and ``moe.experts`` (the expert products and the gated sum).
+Every call adds to two counters of ``utils.metrics.METRICS``:
+``moe_decode_pairs`` (rows x k) and ``moe_decode_experts_reached``
+(experts with a pair).
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from trainingjob_operator_tpu_torch.models import decode, llama, moe
+from trainingjob_operator_tpu_torch.utils.metrics import METRICS
 
 
 def _check_capacity(config: moe.MoEConfig) -> None:
@@ -64,6 +74,15 @@ def prefill(params, tokens: torch.Tensor, config: moe.MoEConfig,
     return logits_all[:, -1, :], decode.pack_cache(k, v, config, max_len)
 
 
+def _range(name: str):
+    """``record_function(name)`` while a profiler records, else nothing: a
+    range costs about 10 us of host time even when no profiler records,
+    and a tick that carries a chunk opens 64 of them."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
+
+
 def _routed_mlp_token(x: torch.Tensor, layer, config: moe.MoEConfig,
                       compute: torch.dtype) -> torch.Tensor:
     """Top-k routed expert MLP for single-token rows x [N, 1, D] ->
@@ -75,27 +94,32 @@ def _routed_mlp_token(x: torch.Tensor, layer, config: moe.MoEConfig,
     row chose runs its three products on those rows against its own
     weights (read once, never copied), and the outputs land at their
     pairs.  The gated sum over k is then the JAX einsum.  One host read a
-    call: the per-expert pair counts."""
+    call: the per-expert pair counts, which also feed the counters."""
     c = config
     N, k = x.shape[0], c.experts_per_token
     xf = x[:, 0]                                            # [N, D]
     w = layer["moe"]
-    probs = torch.softmax(xf.float() @ w["router"], dim=-1)
-    top = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = top.values[:, :k], top.indices[:, :k]
-    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
-    pairs = idx.reshape(-1)                                 # row * k + j
-    order = torch.argsort(pairs, stable=True)
-    counts = torch.bincount(pairs, minlength=c.n_experts).tolist()
-    y = xf.new_empty((N * k, c.dim))
-    for e, chosen in enumerate(torch.split(order, counts)):
-        if not counts[e]:
-            continue
-        xe = xf[chosen // k]
-        gate = F.silu(xe @ w["w_gate"][e].to(compute))
-        up = xe @ w["w_up"][e].to(compute)
-        y[chosen] = (gate * up) @ w["w_down"][e].to(compute)
-    y = torch.einsum("nkd,nk->nd", y.view(N, k, c.dim), gates.to(compute))
+    with _range("moe.route"):
+        probs = torch.softmax(xf.float() @ w["router"], dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gates, idx = top.values[:, :k], top.indices[:, :k]
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        pairs = idx.reshape(-1)                             # row * k + j
+        order = torch.argsort(pairs, stable=True)
+        counts = torch.bincount(pairs, minlength=c.n_experts).tolist()
+    METRICS.inc("moe_decode_pairs", N * k)
+    METRICS.inc("moe_decode_experts_reached", sum(1 for n in counts if n))
+    with _range("moe.experts"):
+        y = xf.new_empty((N * k, c.dim))
+        for e, chosen in enumerate(torch.split(order, counts)):
+            if not counts[e]:
+                continue
+            xe = xf[chosen // k]
+            gate = F.silu(xe @ w["w_gate"][e].to(compute))
+            up = xe @ w["w_up"][e].to(compute)
+            y[chosen] = (gate * up) @ w["w_down"][e].to(compute)
+        y = torch.einsum("nkd,nk->nd", y.view(N, k, c.dim),
+                         gates.to(compute))
     return y[:, None, :]
 
 
