@@ -28,7 +28,11 @@ script exits non-zero):
    SDPA with ``is_causal=False`` and bound with T^2 visible pairs.  The
    decode attention runs at the serving cell's cache slice, full and at a
    ragged half fill, and at ``generate``'s one row (``DECODE_CASES``,
-   ``DECODE_TOL``), timed over a rotation of layer slices.
+   ``DECODE_TOL``), timed over a rotation of layer slices.  The grouped
+   expert products of the routed MLP run at the routed serving cell's
+   decode step and chunk at Mixtral-8x7B's widths (``MOE_EXPERT_CASES``,
+   ``MOE_EXPERT_TOL``); their yardstick is the cuBLAS loop over the
+   experts with the counts already on the host.
 2a. train_124m_f32: the trainer's step at the 124M config in float32
    (``LLAMA_DTYPE=float32``: head dim 64, so attention takes the f32-FMA
    kernels), seq 1024, batch 8, remat "none", TF32 off for cuBLAS and
@@ -233,7 +237,8 @@ script exits non-zero):
 Each phase line carries ``elapsed_s``, the script's seconds so far.
 Then the ``kernels`` line, one entry per hand-written kernel: RMSNorm,
 the tensor-core (wgmma) and f32-FMA kernels of the flash forward, dQ and
-dK/dV, and the decode attention, with their launches on the paths driven
+dK/dV, the decode attention and the grouped expert products, with their
+launches on the paths driven
 (the 7B phases 5-9b and 13, the 124M trainer of phases 10-11 (10a and 10b
 too) and 14 and the Mixtral-width phases 15-16a run the bf16 tensor-core
 kernels, the 124M float32 trainer of phase 2a, the tiny fp32 phases 3-4a
@@ -905,6 +910,100 @@ def check_decode_attention(torch, F, da):
     return cases
 
 
+#: (rtol, atol as a share of the reference's RMS) of the grouped expert
+#: products against their plain version: both sum f32 products of the same
+#: bf16 operands in another order and round at the same points (the
+#: products, silu, the gated product, the output), so an output may land
+#: one bf16 step apart.
+MOE_EXPERT_TOL = (2 ** -7, 2 ** -9)
+#: (N rows, k, E, D, F, padded rows, name) of the grouped expert products'
+#: checks: the routed serving cell's decode step (32 slots) and chunk (256
+#: rows) at Mixtral-8x7B's widths, each row's k experts drawn at random,
+#: and a prompt's last chunk, whose padding rows (the same token) all choose
+#: one pair of experts (3 and 5): here 128 of them, so two experts hold
+#: about 160 rows each.
+MOE_EXPERT_CASES = [(32, 2, 8, 4096, 14336, 0, "decode"),
+                    (256, 2, 8, 4096, 14336, 0, "chunk"),
+                    (256, 2, 8, 4096, 14336, 128, "last chunk")]
+
+
+def check_moe_experts(torch, F, me):
+    """The grouped expert kernels (gate/up, then down) against their plain
+    version at MOE_EXPERT_CASES within MOE_EXPERT_TOL, timed.  Bound: the
+    reached experts' three matrices and the pairs' rows in and out, once
+    each (``benchmark/flops_moe.py``'s count), against 6 D F flops a pair.
+    ``plain_ms``: the plain version, which reads the counts to the host;
+    ``library_ms``: the same cuBLAS loop over the experts with the counts
+    already on the host, captured in a CUDA graph (the port calls
+    neither on the card)."""
+    cases = []
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for N, k, E, D, Fd, pad, name in MOE_EXPERT_CASES:
+        dtype = torch.bfloat16
+        ws = [(torch.randn(E, a, b, generator=gen, device=dev) * a ** -0.5)
+              .to(dtype) for a, b in ((D, Fd), (D, Fd), (Fd, D))]
+        x = torch.randn(N, D, generator=gen, device=dev).to(dtype)
+        pick = torch.rand(N, E, generator=gen, device=dev).argsort(dim=-1)
+        pick[N - pad:, 0], pick[N - pad:, 1] = 3, 5
+        pairs = pick[:, :k].reshape(-1)
+        order = torch.argsort(pairs, stable=True)
+        counts = torch.bincount(pairs, minlength=E)
+        ends = torch.cumsum(counts, 0)
+        xs = x[order // k].contiguous()
+        args = (xs, ends, order, *ws)
+        got = launched(torch, lambda: me.grouped_experts_kernel(*args),
+                       "moe_experts_gate_up", "cuda")
+        want = me.grouped_experts_reference(*args)
+        torch.cuda.synchronize()
+        rtol, atol_rms = MOE_EXPERT_TOL
+        atol = atol_rms * float(want.float().pow(2).mean().sqrt())
+        err = float((got.float() - want.float()).abs().max())
+        tag = f"moe experts {name} N={N} k={k} E={E} D={D} F={Fd}"
+        if (max_violation(got, want, rtol, atol) > 0
+                or not torch.isfinite(got).all()):
+            raise AssertionError(f"{tag}: max abs err {err} over tolerance")
+        if not torch.equal(got, me.grouped_experts_kernel(*args)):
+            raise AssertionError(f"{tag}: a second run differs")
+        host_ends = [0] + ends.tolist()
+        w_gate, w_up, w_down = ws
+
+        def library():
+            y = xs.new_empty((N * k, D))
+            for e in range(E):
+                a, b = host_ends[e], host_ends[e + 1]
+                if b > a:
+                    xe = xs[a:b]
+                    y[order[a:b]] = (F.silu(xe @ w_gate[e])
+                                     * (xe @ w_up[e])) @ w_down[e]
+            return y
+        reached = int((counts > 0).sum())
+        bytes_moved = reached * 3 * D * Fd * 2 + N * k * 2 * D * 2
+        ops = N * k * 6 * D * Fd
+        t_bound, by = bound(bytes_moved, ops, "bfloat16")
+        iters = 20
+        ms = time_ms(lambda: me.grouped_experts_kernel(*args), iters)
+        cases.append({
+            "case": name, "N": N, "k": k, "E": E, "D": D, "F": Fd,
+            "pad": pad,
+            "dtype": "bfloat16", "reached": reached,
+            "rows_max": int(counts.max()),
+            "plan": me.moe_experts_plan(N, k, E, D, Fd, dtype),
+            "max_abs_err": err, "rtol": rtol, "atol": atol,
+            "ms": ms, **rates(ops, ms, t_bound),
+            "eager_ms": eager_ms(lambda: me.grouped_experts_kernel(*args),
+                                 iters),
+            "plain_ms": eager_ms(lambda: me.grouped_experts_reference(*args),
+                                 5),
+            "host_us": host_us(lambda: me.grouped_experts_kernel(*args),
+                               iters),
+            "library_ms": time_ms(library, iters),
+            "bound_ms": t_bound, "bound_by": by})
+        del ws, w_gate, w_up, w_down, x, xs, got, want, args
+        torch.cuda.empty_cache()
+    return cases
+
+
 def train_launches(L: int, remat: str, micro_steps: int,
                    tensor_cores: bool = False):
     """Kernel launches of ``micro_steps`` microbatch steps of an L-layer
@@ -915,7 +1014,7 @@ def train_launches(L: int, remat: str, micro_steps: int,
     layer's two RMSNorms in the backward; "full" and "dots" re-run its
     flash forward too, while "attn" saves the forward's (out, lse)
     (tests/test_torch_remat.py).  Training never reaches the decode
-    attention."""
+    attention or the grouped expert kernels."""
     fwd = micro_steps * (2 if remat in ("full", "dots") else 1) * L
     return {"rmsnorm_fwd":
                 micro_steps * ((2 if remat == "none" else 4) * L + 1),
@@ -927,7 +1026,8 @@ def train_launches(L: int, remat: str, micro_steps: int,
                 micro_steps * L if tensor_cores else 0,
             "flash_attention_bwd_dkv_wgmma":
                 micro_steps * L if tensor_cores else 0,
-            "decode_attention": 0}
+            "decode_attention": 0, "moe_experts_gate_up": 0,
+            "moe_experts_down": 0}
 
 
 def tiny_train_equivalence(torch, llama, llama_elastic, train):
@@ -2532,6 +2632,12 @@ def serve_7b(torch, serve, params, cfg, family="llama"):
         raise AssertionError(f"{family} serve: {counts['decode_attention']} "
                              f"decode attention launches, expected "
                              f"{cfg.n_layers * svc.decode_calls}")
+    routed = cfg.n_layers * (svc.decode_calls + svc.prefill_calls) * (
+        family == "moe")
+    if not (counts["moe_experts_gate_up"] == counts["moe_experts_down"]
+            == routed):
+        raise AssertionError(f"{family} serve: expert launches {counts}, "
+                             f"expected {routed} of each")
     # A decode tick with every slot at a position inside the cache.
     tokens = torch.arange(1, len(svc.slots) + 1, device=dev)
     ts = torch.arange(len(svc.slots), device=dev) * 100 + 100
@@ -3599,6 +3705,7 @@ def main() -> int:
     )
     from trainingjob_operator_tpu_torch.ops import _build, fused
     from trainingjob_operator_tpu_torch.ops import decode_attention as da
+    from trainingjob_operator_tpu_torch.ops import moe_experts as me
     from trainingjob_operator_tpu_torch.workloads import (
         bert_pretrain,
         llama_elastic,
@@ -3635,11 +3742,12 @@ def main() -> int:
     flash_cases = check_flash(torch, F, flash)
     dq_cases, dkv_cases = check_flash_bwd(torch, F, flash)
     decode_cases = check_decode_attention(torch, F, da)
+    expert_cases = check_moe_experts(torch, F, me)
     emit({"phase": "kernel_checks", "device": name, "nvidia_smi": smi,
           "rmsnorm_fwd": rms_cases, "flash_attention_fwd": flash_cases,
           "flash_attention_bwd_dq": dq_cases,
           "flash_attention_bwd_dkv": dkv_cases,
-          "decode_attention": decode_cases})
+          "decode_attention": decode_cases, "moe_experts": expert_cases})
     trained_f32 = train_124m_f32(torch, llama, llama_elastic, train, flash)
     emit({"phase": "train_124m_f32", "device": name, "nvidia_smi": smi,
           **trained_f32})
@@ -3833,6 +3941,11 @@ def main() -> int:
                 "none (plain XLA: trainingjob_operator_tpu/models/"
                 "decode.py:86)", decode_cases, decode_cases[0],
                 launches["decode_attention"]),
+        summary("moe_experts", "cuda", src + "moe_experts.cu",
+                "none (jnp.take of the chosen experts' weights: "
+                "trainingjob_operator_tpu/models/moe_decode.py)",
+                expert_cases, expert_cases[0],
+                launches["moe_experts_gate_up"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

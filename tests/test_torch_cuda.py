@@ -6,17 +6,27 @@ machine with the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 chip_smoke.py repeats these checks at the full-width shapes.
 """
 
+import dataclasses
 import importlib
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from trainingjob_operator_tpu_torch import ops
-from trainingjob_operator_tpu_torch.models import bert, decode, llama, resnet
+from trainingjob_operator_tpu_torch.models import (
+    bert,
+    decode,
+    llama,
+    moe,
+    moe_decode,
+    resnet,
+)
 from trainingjob_operator_tpu_torch.ops import decode_attention as da
 from trainingjob_operator_tpu_torch.ops import fused
+from trainingjob_operator_tpu_torch.ops import moe_experts as me
 from trainingjob_operator_tpu_torch.workloads import (
     bert_pretrain,
     llama_elastic,
@@ -394,6 +404,97 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, D, group, window,
     assert torch.equal(got, da.decode_attention(q, k, v, t, group, window))
 
 
+def _expert_inputs(dev, dtype, N, k, E, D, Fd, hot=None, unused=None,
+                   seed=0):
+    """xs, ends, order and the three weights of N rows, each choosing k
+    distinct experts at random; every row chooses ``hot`` first where
+    given, and no row chooses ``unused``."""
+    rng = np.random.default_rng(seed)
+    pool = [e for e in range(E) if e != unused]
+    choices = []
+    for _ in range(N):
+        rest = [e for e in rng.permutation(pool) if e != hot]
+        choices.append(([hot] if hot is not None else []) + rest)
+    pairs = torch.tensor([c[:k] for c in choices], device=dev).reshape(-1)
+    order = torch.argsort(pairs, stable=True)
+    ends = torch.cumsum(torch.bincount(pairs, minlength=E), 0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(N, D, generator=g, device=dev).to(dtype)
+    xs = x[order // k].contiguous()
+    ws = [(torch.randn(E, a, b, generator=g, device=dev) * a ** -0.5)
+          .to(dtype) for a, b in ((D, Fd), (D, Fd), (Fd, D))]
+    return (xs, ends, order, *ws)
+
+
+@pytest.mark.parametrize("dtype,N,E,D,Fd,hot,unused", [
+    # The routed serving cell at Mixtral-8x7B's widths: a decode step (32
+    # rows) and a 256-row chunk, with an expert no row chose, and a chunk
+    # where every row chooses expert 3 (256 rows: one pass of four blocks).
+    (torch.bfloat16, 32, 8, 4096, 14336, None, 7),
+    (torch.bfloat16, 256, 8, 4096, 14336, None, 7),
+    (torch.bfloat16, 256, 8, 4096, 14336, 3, None),
+    # Narrow and ragged widths (D and F multiples of 8, not of 64), one row
+    # (generate), and 300 rows on one expert: two passes, the second one
+    # partial.
+    (torch.bfloat16, 300, 4, 200, 520, 0, None),
+    (torch.bfloat16, 1, 4, 200, 520, None, None),
+    # float32 (the tiny configs): the FMA kernel.
+    (torch.float32, 300, 4, 200, 520, 0, None),
+    (torch.float32, 1, 4, 64, 128, None, 2),
+])
+def test_expert_kernels_match_plain(dev, dtype, N, E, D, Fd, hot, unused):
+    # Both sum f32 products of the same operands in another order (about
+    # 1e-6 of the output); bf16 rounds at the same points (the products,
+    # silu, the gated product, the output), so a rounding near a tie may
+    # land one bf16 step apart: within 2^-7 relative, and 2^-9 of the
+    # output's RMS near 0.  float32: within 1e-4 relative and 1e-4 of the
+    # RMS.
+    args = _expert_inputs(dev, dtype, N, 2, E, D, Fd, hot, unused)
+    ops.reset_launch_counts()
+    got = me.grouped_experts(*args)
+    counts = ops.launch_counts()
+    assert counts["moe_experts_gate_up"] == counts["moe_experts_down"] == 1
+    want = me.grouped_experts_reference(*args)
+    assert got.dtype == dtype and got.shape == (2 * N, D)
+    rms = float(want.float().pow(2).mean().sqrt())
+    rtol, atol = ((2 ** -7, 2 ** -9) if dtype == torch.bfloat16
+                  else (1e-4, 1e-4))
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol * rms)
+    assert torch.equal(got, me.grouped_experts(*args))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_routed_steps_read_nothing_to_the_host(dev, dtype):
+    # A tiny MoE's serve_step and prefill_chunk under the sync debug mode
+    # in "error": any host read of a device value (.tolist(), .item(), a
+    # blocking copy) raises.  Each layer launches the two expert kernels.
+    cfg = dataclasses.replace(moe.MoEConfig.tiny(), dtype=dtype)
+    params = moe.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    cache = decode.init_cache(cfg, 4, 32, device=dev)
+    tokens = torch.tensor([5, 9, 200, 31], device=dev)
+    ts = torch.tensor([3, 0, 7, 12], device=dev)
+    chunk = torch.arange(3, 11, device=dev)
+
+    def tick():
+        moe_decode.serve_step(params, cache, tokens, ts, cfg)
+        moe_decode.prefill_chunk(params, cache, chunk, 1, 8, cfg)
+
+    tick()                         # the library's load, first launches
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tick()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["moe_experts_gate_up"] == 2 * cfg.n_layers
+    assert counts["moe_experts_down"] == 2 * cfg.n_layers
+
+
 def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
     base = llama.LlamaConfig.tiny()
     cfg = llama.LlamaConfig(**{**base.__dict__, "dtype": "float32"})
@@ -417,7 +518,9 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
                       "flash_attention_fwd_wgmma": 0,
                       "flash_attention_bwd_dq_wgmma": 0,
                       "flash_attention_bwd_dkv_wgmma": 0,
-                      "decode_attention": 0}
+                      "decode_attention": 0,
+                      "moe_experts_gate_up": 0,
+                      "moe_experts_down": 0}
     torch.testing.assert_close(losses["cuda"], losses["cpu"], rtol=1e-4,
                                atol=0)
 

@@ -4,8 +4,8 @@ Which kernel a call takes, its grid and tile order, when an input is copied
 and the tensor maps the tensor-core kernels are built from are decided in
 plain Python (``ops/flash_attention.py`` ``fwd_plan``, ``dq_plan`` and
 ``dkv_plan``; ``ops/fused.py`` ``rmsnorm_plan``;
-``ops/decode_attention.py`` ``decode_attention_plan``), so they are
-checked here;
+``ops/decode_attention.py`` ``decode_attention_plan``;
+``ops/moe_experts.py`` ``moe_experts_plan``), so they are checked here;
 the kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
@@ -20,6 +20,7 @@ import torch
 from trainingjob_operator_tpu_torch import ops
 from trainingjob_operator_tpu_torch.ops import _build, fused
 from trainingjob_operator_tpu_torch.ops import decode_attention as da
+from trainingjob_operator_tpu_torch.ops import moe_experts as me
 
 flash = importlib.import_module(
     "trainingjob_operator_tpu_torch.ops.flash_attention")
@@ -739,3 +740,146 @@ def test_decode_attention_counter_is_reported_and_reset():
     assert ops.launch_counts()["decode_attention"] == 5
     ops.reset_launch_counts()
     assert ops.launch_counts()["decode_attention"] == 0
+
+
+# Mixtral-8x7B's routed MLP in the serving cell: 8 experts of 4096 x 14336.
+MIXTRAL_EXPERTS = dict(E=8, D=4096, Fd=14336)
+
+
+@pytest.mark.parametrize("N,stages", [
+    # A decode step of 32 slots: an expert holds at most 32 rows; 16 KB of
+    # weight tiles and 4 KB of rows a stage, 8 stages.
+    (32, 8),
+    # A 256-row chunk: an expert may hold all 256 rows, still one pass; at
+    # that width 32 KB of rows a stage, 3 stages.
+    (256, 3),
+    # generate's one row.
+    (1, 9),
+])
+def test_expert_plan_at_the_serving_shapes(N, stages):
+    plan = me.moe_experts_plan(N, 2, dtype=torch.bfloat16, **MIXTRAL_EXPERTS)
+    assert plan["kernel"] == "wgmma" and plan["pairs"] == 2 * N
+    # gate/up: 64 weight columns a tile, 224 of F an expert; down: 128, 32
+    # of D.
+    assert plan["tiles"] == {"gate_up": 224 * 8, "down": 32 * 8}
+    # Persistent: one CTA an SM.
+    assert plan["grid"] == {"gate_up": (me.SMS,), "down": (me.SMS,)}
+    # Every weight read once a call: an expert holds each row at most once.
+    assert plan["passes"] == 1 and plan["stages"] == stages
+    assert me.moe_experts_plan(257, 2, dtype=torch.bfloat16,
+                               **MIXTRAL_EXPERTS)["passes"] == 2
+
+
+@pytest.mark.parametrize("widest,stages", [
+    (1, 9), (8, 9), (12, 8), (32, 8), (76, 6), (128, 5), (256, 3),
+    (300, 3)])
+def test_expert_ring_holds_the_widest_pass(widest, stages):
+    # A stage holds two 64 x 64 weight tiles and the widest pass's rows in
+    # boxes of 8; a pass holds at most 256 rows.
+    assert me.ring_stages(widest) == stages
+    rows = -(-min(widest, me.ME_PASS_ROWS) // 8) * 8
+    stage = (2 * 64 + rows) * 64 * 2
+    assert stages * stage <= me.ME_RING_BYTES < (stages + 1) * stage
+
+
+def test_expert_plan_of_the_f32_kernel():
+    plan = me.moe_experts_plan(3, 2, 4, 64, 128, torch.float32)
+    assert plan["kernel"] == "fma"
+    assert plan["grid"] == {"gate_up": (2, 4), "down": (1, 4)}
+
+
+@pytest.mark.parametrize("args,err", [
+    ((4, 2, 8, 4096, 14336, torch.float16), TypeError),
+    ((4, 2, 8, 4100, 14336, torch.bfloat16), ValueError),
+    ((4, 2, 8, 4096, 14330, torch.bfloat16), ValueError),
+    ((0, 2, 8, 4096, 14336, torch.bfloat16), ValueError),
+    ((4, 9, 8, 4096, 14336, torch.bfloat16), ValueError)])
+def test_expert_plan_refuses_what_the_kernels_do_not_take(args, err):
+    with pytest.raises(err):
+        me.moe_experts_plan(*args)
+
+
+def test_expert_constants_are_those_of_the_source():
+    src = (_build.SRC_DIR / "moe_experts.cu").read_text()
+    for name, value in (("kTileM", me.ME_TILE_M), ("kTileK", me.ME_TILE_K),
+                        ("kBlockRows", me.ME_BLOCK_ROWS),
+                        ("kBoxRows", me.ME_BOX_ROWS),
+                        ("kMaxStages", me.ME_MAX_STAGES),
+                        ("kRingBytes", me.ME_RING_BYTES),
+                        ("kFmaCols", me.FMA_COLS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert re.search(r"constexpr int kPassRows = 4 \* kBlockRows;", src)
+    assert me.ME_PASS_ROWS == 4 * me.ME_BLOCK_ROWS
+
+
+def _expert_args(dtype=torch.bfloat16, N=5, k=2, E=4, D=64, Fd=128):
+    pairs = torch.tensor([[0, 2], [2, 1], [0, 2], [3, 0], [2, 3]])[:N]
+    order = torch.argsort(pairs.reshape(-1), stable=True)
+    ends = torch.cumsum(torch.bincount(pairs.reshape(-1), minlength=E), 0)
+    xs = torch.zeros(N * k, D, dtype=dtype)
+    return (xs, ends, order, torch.zeros(E, D, Fd, dtype=dtype),
+            torch.zeros(E, D, Fd, dtype=dtype),
+            torch.zeros(E, Fd, D, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_expert_kernels_launch_gate_up_then_down(lib, dtype):
+    args = _expert_args(dtype)
+    xs, ends, order, w_gate, w_up, w_down = args
+    y = me.grouped_experts_kernel(*args)
+    assert lib.calls == ["tj_moe_gate_up", "tj_moe_down"]
+    gate_up, down = lib.args
+    # The ranges and the order stay on the device (pointers); h is written
+    # in pair order and read by down, which writes y at the pairs' places.
+    P, D, Fd, E = 10, 64, 128, 4
+    assert gate_up[:4] == (xs.data_ptr(), w_gate.data_ptr(),
+                           w_up.data_ptr(), ends.data_ptr())
+    assert gate_up[5:10] == (P, D, Fd, E, _build.dtype_code(xs))
+    assert down[0] == gate_up[4]
+    assert down[1:5] == (w_down.data_ptr(), ends.data_ptr(),
+                         order.data_ptr(), y.data_ptr())
+    assert down[5:10] == (P, Fd, D, E, _build.dtype_code(xs))
+    assert y.shape == (P, D) and y.dtype == dtype
+    counts = ops.launch_counts()
+    assert counts["moe_experts_gate_up"] == counts["moe_experts_down"] == 1
+
+
+def test_a_failed_expert_launch_raises_with_no_fallback(lib):
+    lib.code = 700
+    with pytest.raises(RuntimeError, match="moe_experts_gate_up launch "
+                       "failed"):
+        me.grouped_experts_kernel(*_expert_args())
+    assert lib.calls == ["tj_moe_gate_up"]
+    counts = ops.launch_counts()
+    assert counts["moe_experts_gate_up"] == counts["moe_experts_down"] == 0
+
+
+def test_an_expert_kernel_missing_from_the_library_raises(lib):
+    lib.missing = ("tj_moe_down",)
+    with pytest.raises(AttributeError):
+        me.grouped_experts_kernel(*_expert_args())
+    assert lib.calls == ["tj_moe_gate_up"]
+    assert ops.launch_counts()["moe_experts_down"] == 0
+
+
+@pytest.mark.parametrize("change,err", [
+    (lambda a: (a[0].float(), *a[1:]), TypeError),
+    (lambda a: (a[0], a[1].int(), *a[2:]), ValueError),
+    (lambda a: (a[0], a[1], a[2][:-1], *a[3:]), ValueError),
+    (lambda a: (*a[:3], a[3].transpose(1, 2), *a[4:]), ValueError),
+    (lambda a: (*a[:5], a[5].transpose(1, 2).contiguous()), ValueError),
+    (lambda a: (a[0][:, ::2], *a[1:]), ValueError)])
+def test_expert_kernels_refuse_what_they_do_not_take(lib, change, err):
+    with pytest.raises(err):
+        me.grouped_experts_kernel(*change(_expert_args()))
+    assert lib.calls == []
+
+
+def test_expert_counters_are_reported_and_reset():
+    me.gate_up_launches, me.down_launches = 3, 4
+    counts = ops.launch_counts()
+    assert (counts["moe_experts_gate_up"], counts["moe_experts_down"]) == \
+        (3, 4)
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["moe_experts_gate_up"] == 0
+    assert ops.launch_counts()["moe_experts_down"] == 0

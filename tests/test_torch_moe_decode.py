@@ -18,6 +18,8 @@ package, in fp32 at the MoE ``tiny`` config.
 import dataclasses
 import warnings
 
+import torch.nn.functional as F
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from trainingjob_operator_tpu.models import moe_decode as jmd  # noqa: E402
 from trainingjob_operator_tpu.workloads import serve as jserve  # noqa: E402
 from trainingjob_operator_tpu_torch.models import moe as tmoe  # noqa: E402
 from trainingjob_operator_tpu_torch.models import moe_decode as tmd  # noqa: E402,E501
+from trainingjob_operator_tpu_torch.utils.metrics import METRICS  # noqa: E402,E501
 from trainingjob_operator_tpu_torch.workloads import serve as tserve  # noqa: E402,E501
 
 RTOL = ATOL = 1e-4
@@ -113,6 +116,85 @@ class TestRoutedMlp:
                                     torch.float32)
         assert got.shape == (3, 1, 64)
         _close(got, want)
+
+
+def _per_expert_loop(x, layer, c, compute):
+    """The routed MLP as a loop over the experts on the host's counts: the
+    port's routed MLP before its products were grouped on the device."""
+    N, k = x.shape[0], c.experts_per_token
+    xf = x[:, 0]
+    w = layer["moe"]
+    probs = torch.softmax(xf.float() @ w["router"], dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = top.values[:, :k], top.indices[:, :k]
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    pairs = idx.reshape(-1)
+    order = torch.argsort(pairs, stable=True)
+    counts = torch.bincount(pairs, minlength=c.n_experts).tolist()
+    y = xf.new_empty((N * k, c.dim))
+    for e, chosen in enumerate(torch.split(order, counts)):
+        if not counts[e]:
+            continue
+        xe = xf[chosen // k]
+        gate = F.silu(xe @ w["w_gate"][e].to(compute))
+        up = xe @ w["w_up"][e].to(compute)
+        y[chosen] = (gate * up) @ w["w_down"][e].to(compute)
+    y = torch.einsum("nkd,nk->nd", y.view(N, k, c.dim), gates.to(compute))
+    return y[:, None, :]
+
+
+def _skewed_layer(tp, hot, cold):
+    """Layer 0's MoE block with the router pushed by feature 0: rows whose
+    feature 0 is large choose ``hot`` first and ``cold`` never."""
+    router = tp["layers"]["moe"]["router"][0].clone()
+    router[0, hot], router[0, cold] = 100.0, -100.0
+    return {"moe": {**{k: v[0] for k, v in tp["layers"]["moe"].items()},
+                    "router": router}}
+
+
+class TestGroupedPlainVersion:
+    @pytest.mark.parametrize("N,skewed", [(1, False), (3, False),
+                                          (256, False), (256, True)])
+    def test_equals_the_per_expert_loop(self, setup, N, skewed):
+        # Skewed: every row chooses expert 2 (all 256 rows: a whole pass of
+        # the card's kernels) and none chooses expert 1.
+        _, tc, _, tp = setup
+        rng = np.random.default_rng(N)
+        x = torch.from_numpy(rng.standard_normal((N, 1, 64))
+                             .astype(np.float32))
+        if skewed:
+            x[:, 0, 0] = 10.0
+            layer = _skewed_layer(tp, hot=2, cold=1)
+        else:
+            layer = {"moe": {k: v[0] for k, v in
+                             tp["layers"]["moe"].items()}}
+        chosen = _chosen(x[:, 0], layer, 2)
+        counts = torch.bincount(chosen.reshape(-1), minlength=4)
+        if skewed:
+            assert counts[2] == N and counts[1] == 0
+        got = tmd._routed_mlp_token(x, layer, tc, torch.float32)
+        want = _per_expert_loop(x, layer, tc, torch.float32)
+        assert got.shape == (N, 1, 64)
+        assert torch.equal(got, want)
+
+    def test_experts_reached_is_counted_on_the_device(self, setup):
+        _, tc, _, tp = setup
+        layer = {"moe": {k: v[0] for k, v in tp["layers"]["moe"].items()}}
+        before = METRICS.snapshot()
+        want_reached, want_pairs = 0, 0
+        for seed, n in ((0, 1), (1, 2), (2, 7), (3, 40)):
+            x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+                (n, 1, 64)).astype(np.float32))
+            tmd._routed_mlp_token(x, layer, tc, torch.float32)
+            want_reached += len(set(_chosen(x[:, 0], layer, 2)
+                                    .reshape(-1).tolist()))
+            want_pairs += 2 * n
+        after = METRICS.snapshot()
+
+        def delta(key):
+            return after.get(key, 0.0) - before.get(key, 0.0)
+        assert delta("moe_decode_experts_reached") == want_reached
+        assert delta("moe_decode_pairs") == want_pairs
 
 
 class TestExecutables:

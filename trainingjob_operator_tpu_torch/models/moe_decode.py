@@ -13,17 +13,20 @@ drop tokens (``_check_capacity`` warns where the config allows it).
 One difference from the JAX functions, deliberate: JAX gathers the chosen
 experts' weights per token (``jnp.take``: [B, k, D, F] copies, about 3.8
 GB a matrix a layer for a 16-token chunk at Mixtral width).
-``_routed_mlp_token`` instead groups the rows by expert and runs each
-chosen expert's three products on its weights in place, then adds the
-gated outputs in JAX's order over k: the same row products, batched
-otherwise.
+``_routed_mlp_token`` instead sorts the (row, choice) pairs by expert and
+runs each chosen expert's three products on its weights in place
+(``ops.moe_experts``: on the card two grouped kernels that read the
+per-expert ranges on the device, so no call waits for the routing), then
+adds the gated outputs in JAX's order over k: the same row products,
+batched otherwise.
 
 While a profiler records, each ``_routed_mlp_token`` call runs under two
-ranges, ``moe.route`` (the router up to the host read of the per-expert
-counts) and ``moe.experts`` (the expert products and the gated sum).
-Every call adds to two counters of ``utils.metrics.METRICS``:
-``moe_decode_pairs`` (rows x k) and ``moe_decode_experts_reached``
-(experts with a pair).
+ranges, ``moe.route`` (the router, the sort of the pairs by expert and
+the per-expert ranges) and ``moe.experts`` (the gather of the rows, the
+expert products and the gated sum).  Every call adds to two counters of
+``utils.metrics.METRICS``: ``moe_decode_pairs`` (rows x k) and
+``moe_decode_experts_reached`` (experts with a pair, summed on the device
+and read by ``METRICS.snapshot``).
 """
 
 from __future__ import annotations
@@ -34,10 +37,10 @@ from functools import partial
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch.profiler import record_function
 
 from trainingjob_operator_tpu_torch.models import decode, llama, moe
+from trainingjob_operator_tpu_torch.ops import moe_experts
 from trainingjob_operator_tpu_torch.utils.metrics import METRICS
 
 
@@ -90,11 +93,13 @@ def _routed_mlp_token(x: torch.Tensor, layer, config: moe.MoEConfig,
 
     The f32 router picks each row's top k (stable descending sort: lower
     index first on ties, as ``jax.lax.top_k``) and renormalises their
-    gates.  The (row, choice) pairs are grouped by expert; each expert some
-    row chose runs its three products on those rows against its own
-    weights (read once, never copied), and the outputs land at their
-    pairs.  The gated sum over k is then the JAX einsum.  One host read a
-    call: the per-expert pair counts, which also feed the counters."""
+    gates.  The (row, choice) pairs are sorted by expert, with each
+    expert's range (``ends``, the cumulative pair counts) kept on the
+    device; the rows are gathered once into that order and each expert some
+    pair chose runs its three products on its rows against its own weights
+    (read once, never copied), the outputs landing at their pairs
+    (``ops.moe_experts.grouped_experts``).  The gated sum over k is then
+    the JAX einsum.  On the card nothing here is read to the host."""
     c = config
     N, k = x.shape[0], c.experts_per_token
     xf = x[:, 0]                                            # [N, D]
@@ -106,18 +111,17 @@ def _routed_mlp_token(x: torch.Tensor, layer, config: moe.MoEConfig,
         gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
         pairs = idx.reshape(-1)                             # row * k + j
         order = torch.argsort(pairs, stable=True)
-        counts = torch.bincount(pairs, minlength=c.n_experts).tolist()
+        counts = torch.zeros(c.n_experts, dtype=torch.int64,
+                             device=pairs.device).scatter_add_(
+            0, pairs, torch.ones_like(pairs))
+        ends = torch.cumsum(counts, 0)
     METRICS.inc("moe_decode_pairs", N * k)
-    METRICS.inc("moe_decode_experts_reached", sum(1 for n in counts if n))
+    METRICS.inc("moe_decode_experts_reached", torch.count_nonzero(counts))
     with _range("moe.experts"):
-        y = xf.new_empty((N * k, c.dim))
-        for e, chosen in enumerate(torch.split(order, counts)):
-            if not counts[e]:
-                continue
-            xe = xf[chosen // k]
-            gate = F.silu(xe @ w["w_gate"][e].to(compute))
-            up = xe @ w["w_up"][e].to(compute)
-            y[chosen] = (gate * up) @ w["w_down"][e].to(compute)
+        xs = xf.index_select(0, order // k).to(compute)
+        y = moe_experts.grouped_experts(
+            xs, ends, order, *(w[name].to(compute)
+                               for name in ("w_gate", "w_up", "w_down")))
         y = torch.einsum("nkd,nk->nd", y.view(N, k, c.dim),
                          gates.to(compute))
     return y[:, None, :]

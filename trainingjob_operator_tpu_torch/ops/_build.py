@@ -82,6 +82,10 @@ SIGNATURES = {
     # of q, the (b, s, h) strides of k and v, then the stream
     "tj_decode_attention": [_P] * 4 + [_L] + [_P] * 3 + [_I] * 10 + [_F]
     + [_L] * 8 + [_P],
+    # xs, w_gate, w_up, ends, h, P, D, F, E, dtype, then the stream
+    "tj_moe_gate_up": [_P] * 5 + [_I] * 5 + [_P],
+    # h, w_down, ends, order, y, P, F, D, E, dtype, then the stream
+    "tj_moe_down": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 #: dtype codes the C entry points take (csrc/common.cuh kF32, kBF16).
